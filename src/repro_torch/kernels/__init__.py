@@ -1,0 +1,15 @@
+"""Hopper kernels scheduled by the Covenant tiler.
+
+``ops`` is the public API (padding, Covenant blocks, device dispatch);
+``ref`` holds the plain-PyTorch oracles every kernel is tested against;
+``tiling`` is the Algorithm-1 -> block-geometry bridge; ``matmul`` and
+``flash_attention`` hold the wrappers of ``csrc/*.cu`` beside their plain
+versions; ``_build`` compiles and binds the CUDA sources.
+"""
+from . import flash_attention, matmul, ops, ref, tiling
+from .ops import (covenant_attention, covenant_decode_attention,
+                  covenant_matmul)
+
+__all__ = ["covenant_attention", "covenant_decode_attention",
+           "covenant_matmul", "flash_attention", "matmul", "ops", "ref",
+           "tiling"]

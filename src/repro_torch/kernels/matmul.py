@@ -1,0 +1,107 @@
+"""Blocked GEMM: the Hopper port of ``repro/kernels/matmul.py::matmul``.
+
+``matmul`` launches ``csrc/matmul.cu`` for a CUDA tensor and runs
+``matmul_plain`` for a CPU tensor.  The block geometry comes from the
+Covenant tiler (``tiling.gemm_blocks``) through ``ops.covenant_matmul``.
+Supports bf16/f32 -> f32 (f32 in true IEEE f32, no TF32) and s8 -> s32.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from . import _build
+from .ref import matmul_ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SYMBOLS = {torch.bfloat16: "covenant_matmul_bf16",
+            torch.float32: "covenant_matmul_f32",
+            torch.int8: "covenant_matmul_i8"}
+THREADS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def thread_tile(rows: int, cols: int, max_tn: int = 16
+                ) -> tuple[int, int, int, int]:
+    """(tm, tn, txc, tyc): a ``rows x cols`` block tile over at most 256
+    threads, ``tyc x txc`` of them, each holding a ``tm x tn`` register
+    micro-tile (thread (ty, tx) owns rows ty + i*tyc, columns tx + j*txc).
+    Picks the fewest outputs per thread, then the fewest shared-memory
+    reads per step (tm + tn), then the widest rows of threads."""
+    best, best_key = None, None
+    for tm in (1, 2, 4, 8):
+        tyc = math.ceil(rows / tm)
+        if tyc > THREADS:
+            continue
+        txc = max(1, min(THREADS // tyc, cols))
+        tn = math.ceil(cols / txc)
+        if tn > max_tn:
+            continue
+        key = (tm * tn, tm + tn, -txc)
+        if best_key is None or key < best_key:
+            best, best_key = (tm, tn, txc, tyc), key
+    if best is None:
+        raise ValueError(f"block tile {rows}x{cols} does not fit {THREADS} "
+                         f"threads of at most 8x{max_tn} outputs")
+    return best
+
+
+def smem_bytes(block_m: int, block_n: int, block_k: int,
+               dtype: torch.dtype) -> int:
+    """Shared memory of one block: the a and b tiles in the input type,
+    each row padded by 4 bytes (``csrc/matmul.cu``)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    pad = 4 // size
+    return ((block_m * (block_k + pad) + block_k * (block_n + pad)) * size)
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if dtype.is_floating_point else torch.int32
+
+
+def matmul_plain(a: torch.Tensor, b: torch.Tensor,
+                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """C = A @ B with f32 (or i32) accumulation, in plain PyTorch: the
+    oracle ``ref.matmul_ref``."""
+    return matmul_ref(a, b, out_dtype or _acc_dtype(a.dtype))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, block_m: int, block_n: int,
+           block_k: int, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """C[M,N] = A[M,K] @ B[K,N].  Dims must be divisible by the block sizes
+    (``ops.covenant_matmul`` pads); accumulation is f32 for float inputs,
+    i32 for int8.  CPU tensors take ``matmul_plain``; CUDA tensors launch
+    the kernel or raise."""
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2 or m % block_m or n % block_n or k % block_k:
+        raise ValueError(f"matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)} "
+                         f"do not tile by {(block_m, block_n, block_k)}")
+    if a.device.type == "cpu":
+        return matmul_plain(a, b, out_dtype)
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"matmul: unsupported devices {a.device}, {b.device}")
+    if a.dtype != b.dtype or a.dtype not in _SYMBOLS:
+        raise TypeError(f"matmul: unsupported dtypes {a.dtype}, {b.dtype}")
+    a, b = a.contiguous(), b.contiguous()
+    tm, tn, txc, tyc = thread_tile(block_m, block_n)
+    smem = smem_bytes(block_m, block_n, block_k, a.dtype)
+    out = torch.empty((m, n), dtype=_acc_dtype(a.dtype), device=a.device)
+    fn = _build.bind("matmul", _SYMBOLS[a.dtype], [_P, _P, _P] + [_I] * 11
+                     + [_P])
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+                 block_m, block_n, block_k, tm, tn, txc, tyc, smem, stream)
+    _build.check("matmul", err)
+    matmul.launches += 1
+    return out if out_dtype is None or out_dtype == out.dtype \
+        else out.to(out_dtype)
+
+
+matmul.launches = 0
+
+__all__ = ["matmul", "matmul_plain", "smem_bytes", "thread_tile"]

@@ -1,0 +1,94 @@
+"""Public kernel API: padding, block selection, GQA and device dispatch.
+
+The counterpart of ``repro/kernels/ops.py`` with the same signatures, less
+``interpret``: a CPU tensor runs each kernel's plain PyTorch version, a
+CUDA tensor launches the Hopper kernel or raises.  Block geometry defaults
+to the Covenant tiler's Algorithm-1 choice against the ``h100`` covenant
+(``tiling.gemm_blocks`` / ``attention_blocks``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import ref as _ref
+from .flash_attention import flash_attention as _fa, flash_decode as _fd
+from .matmul import matmul as _mm
+from .tiling import attention_blocks, gemm_blocks
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    s = x.shape[axis]
+    t = -(-s // mult) * mult
+    if t == s:
+        return x
+    pads = [0, 0] * x.ndim
+    pads[2 * (x.ndim - 1 - axis) + 1] = t - s
+    return F.pad(x, pads)
+
+
+def covenant_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                    out_dtype: torch.dtype | None = None,
+                    blocks: tuple[int, int, int] | None = None
+                    ) -> torch.Tensor:
+    """GEMM with Covenant-tiled blocks; pads to block multiples."""
+    m, k = a.shape
+    _, n = b.shape
+    is_int = not a.dtype.is_floating_point
+    out_dtype = out_dtype or (torch.int32 if is_int else torch.float32)
+    if blocks is None:
+        in_dt = "i8" if is_int else ("f32" if a.dtype == torch.float32
+                                     else "bf16")
+        blocks = gemm_blocks(m, n, k, in_dtype=in_dt)
+    bm, bn, bk = blocks
+    ap = _pad_to(_pad_to(a, 0, bm), 1, bk)
+    bp = _pad_to(_pad_to(b, 0, bk), 1, bn)
+    out = _mm(ap, bp, block_m=bm, block_n=bn, block_k=bk, out_dtype=out_dtype)
+    return out[:m, :n]
+
+
+def covenant_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int | None = None,
+                       scale: float | None = None,
+                       blocks: tuple[int, int] | None = None) -> torch.Tensor:
+    """GQA flash attention.  q: (B,Hq,Sq,D), k/v: (B,Hkv,Sk,D).
+
+    The kernel reads kv head ``h // (Hq // Hkv)`` for q head ``h`` rather
+    than repeating k and v, and masks the ragged q edge itself rather than
+    padding q; ``q_offset = Sk - Sq`` as in the reference."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if blocks is None:
+        bq, bkv = attention_blocks(sq, sk, d, heads=b * hq)
+    else:
+        bq, bkv = blocks
+    bq = min(bq, sq)
+    out = _fa(q.reshape(b * hq, sq, d), k.reshape(b * hkv, sk, d),
+              v.reshape(b * hkv, sk, d), causal=causal, window=window,
+              scale=scale, block_q=bq, block_kv=bkv, q_offset=sk - sq)
+    return out.reshape(b, hq, sq, d)
+
+
+def covenant_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, kv_len: torch.Tensor, *,
+                              scale: float | None = None,
+                              block_kv: int = 512) -> torch.Tensor:
+    """One-token GQA decode.  q: (B,Hq,D), cache k/v: (B,Hkv,S,D),
+    kv_len: (B,).  Returns (B,Hq,D)."""
+    b, hq, d = q.shape
+    _, hkv, s, _ = k.shape
+    g = hq // hkv
+    qg = q.reshape(b * hkv, g, d)
+    kf = k.reshape(b * hkv, s, d)
+    vf = v.reshape(b * hkv, s, d)
+    lens = kv_len.repeat_interleave(hkv)
+    out = _fd(qg, kf, vf, lens, scale=scale, block_kv=min(block_kv, s))
+    return out.reshape(b, hq, d)
+
+
+# re-export oracles for convenience
+matmul_ref = _ref.matmul_ref
+attention_ref = _ref.attention_ref
+
+__all__ = ["attention_ref", "covenant_attention", "covenant_decode_attention",
+           "covenant_matmul", "matmul_ref"]

@@ -1,0 +1,167 @@
+"""Covenant -> Hopper bridge: the paper's Algorithm-1 tiler picks the block
+geometry of the port's CUDA kernels.
+
+``gemm_blocks`` runs placement, compute mapping and Algorithm-1 tiling
+enumeration with cost-based selection on a GEMM codelet against the ``h100``
+covenant (``repro_torch.targets``), as ``repro/kernels/tiling.py`` does
+against ``tpu_v5e``.  The TPU's (8, 128) / MXU-128 alignment rule becomes
+Hopper's:
+
+* M in multiples of 64 (a warpgroup's rows), or the whole M when M < 64;
+* N in multiples of 16;
+* K in multiples of 16 for bf16 and f32, 32 for i8 (a 32-byte MMA depth);
+* the staged (a, b, acc) tiles fit the SMEM node and the accumulator fits
+  the RF node;
+* and, since Hopper runs blocks in parallel, a tiling whose grid gives
+  every SM two blocks ranks first (``_fill_deficit``).
+
+``attention_blocks`` sizes the flash kernel's (q, kv) tiles through the
+equivalent QK^T GEMM, then bounds the flash working set by shared memory;
+``decode_block_kv`` is its kv block for the decode kernel, whose split kv
+walk is what fills the card when batch x kv heads is small.
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+from ..core import library, scheduler
+from ..core.scheduler import enumerate_tilings, plan_operands
+from ..targets import H100, h100_acg
+
+WARPGROUP_M = 64
+N_UNIT = 16
+K_UNIT = {"bf16": 16, "f32": 16, "i8": 32}
+_BYTES = {"bf16": 2, "f32": 4, "i8": 1, "i32": 4}
+
+
+def _acc_dtype(in_dtype: str) -> str:
+    return "i32" if in_dtype == "i8" else "f32"
+
+
+def _round_up(x: int, unit: int) -> int:
+    return max(unit, math.ceil(x / unit) * unit)
+
+
+def _align_score(t: dict[str, int], dims: dict[str, int], k_unit: int) -> tuple:
+    """Prefer Hopper-aligned tiles (M by 64, N by 16, K by the MMA depth)."""
+    def sc(var, unit):
+        v = t.get(var, 1)
+        return 0 if v % unit == 0 or v == dims[var] else 1
+    return (sc("n", N_UNIT) + sc("k", k_unit) + sc("m", WARPGROUP_M),)
+
+
+@functools.lru_cache(maxsize=None)
+def _budgets() -> tuple[int, int]:
+    """(SMEM bytes, RF bytes) one block may stage, read off the covenant."""
+    acg = h100_acg()
+    return acg.memory("SMEM").capacity_bytes, acg.memory("RF").capacity_bytes
+
+
+def gemm_fits(bm: int, bn: int, bk: int, in_dtype: str = "bf16") -> bool:
+    """The (a, b, acc) working set fits SMEM and the accumulator fits RF."""
+    smem_b, rf_b = _budgets()
+    acc = bm * bn * _BYTES[_acc_dtype(in_dtype)]
+    staged = (bm * bk + bk * bn) * _BYTES[in_dtype] + acc
+    return staged <= smem_b and acc <= rf_b
+
+
+@functools.lru_cache(maxsize=512)
+def gemm_blocks(m: int, n: int, k: int, in_dtype: str = "bf16",
+                grid_batch: int = 1) -> tuple[int, int, int]:
+    """(block_m, block_n, block_k) for an (m, n, k) GEMM, chosen by the
+    Covenant tiler against the ``h100`` ACG.  ``grid_batch`` GEMMs of this
+    shape share the launch grid (heads of an attention)."""
+    acg = h100_acg()
+    cdlt = library.gemm(m, n, k, in_dtype=in_dtype,
+                        acc_dtype=_acc_dtype(in_dtype),
+                        name=f"h100gemm_{m}x{n}x{k}")
+    scheduler.place_operands(cdlt, acg)
+    scheduler.map_compute(cdlt, acg, vectorize=True)
+    plans = plan_operands(cdlt, acg)
+    cands = enumerate_tilings(cdlt, acg, plans, max_candidates=6000)
+    if not cands:
+        cands = enumerate_tilings(cdlt, acg, plans, max_candidates=6000,
+                                  pad_align=True)
+    k_unit = K_UNIT[in_dtype]
+    dims = {"m": m, "n": n, "k": k}
+    best, best_key = None, None
+    for t in cands:
+        blocks = _hopper_blocks(t, m, n, k, k_unit)
+        if not gemm_fits(*blocks, in_dtype):
+            continue
+        cost = scheduler.estimate_tiling_cost(cdlt, acg, plans, t)
+        key = (_align_score(t, dims, k_unit),
+               _fill_deficit(m, n, *blocks, grid_batch), cost)
+        if best_key is None or key < best_key:
+            best, best_key = blocks, key
+    assert best is not None, f"no tiling for GEMM {m}x{n}x{k}"
+    return best
+
+
+def _hopper_blocks(t: dict[str, int], m: int, n: int, k: int,
+                   k_unit: int) -> tuple[int, int, int]:
+    """A tiling rounded up to Hopper alignment (ops.py pads the problem to
+    these multiples)."""
+    bm, bn, bk = t.get("m", m), t.get("n", n), t.get("k", k)
+    bm = m if m < WARPGROUP_M else min(_round_up(bm, WARPGROUP_M),
+                                       _round_up(m, WARPGROUP_M))
+    bn = min(_round_up(bn, N_UNIT), _round_up(n, N_UNIT))
+    bk = min(_round_up(bk, k_unit), _round_up(k, k_unit))
+    return bm, bn, bk
+
+
+def _fill_deficit(m: int, n: int, bm: int, bn: int, bk: int,
+                  grid_batch: int) -> int:
+    """Blocks short of two per SM.  The Algorithm-1 cost model counts one
+    core's cycles, as on the single-core TPU; Hopper runs the grid's blocks
+    in parallel on 132 SMs, so a tiling that leaves SMs idle ranks below
+    one that fills them, whatever its single-core cost."""
+    blocks = math.ceil(m / bm) * math.ceil(n / bn) * grid_batch
+    return max(0, 2 * H100["sms"] - blocks)
+
+
+def flash_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
+    """Shared memory of one flash-attention block, in the kernel's layout
+    (``csrc/flash_attention.cu``): f32 q (bq, d+1), k (bkv, d+1) and
+    v (bkv, d) tiles, the (bq, bkv+1) logits and three f32 row stats."""
+    d = head_dim
+    floats = (block_q * (d + 1) + block_kv * (d + 1) + block_kv * d
+              + block_q * (block_kv + 1) + 3 * block_q)
+    return 4 * floats
+
+
+def attention_blocks(seq_q: int, seq_k: int, head_dim: int,
+                     heads: int = 1) -> tuple[int, int]:
+    """(block_q, block_kv) for flash attention: the Covenant tiler sizes the
+    q/k tiles via the equivalent QK^T GEMM (m=seq_q, n=seq_k, k=head_dim),
+    one per head (``heads`` = batch x heads)."""
+    bm, bn, _ = gemm_blocks(seq_q, seq_k, head_dim, grid_batch=heads)
+    bq = bm if seq_q >= WARPGROUP_M else seq_q
+    bkv = min(_round_up(bn, N_UNIT), _round_up(seq_k, N_UNIT))
+    smem_b, rf_b = _budgets()
+    # the (bq, d) f32 accumulator lives in registers; the q/k/v tiles and
+    # the (bq, bkv) logits in shared memory
+    while bq > WARPGROUP_M and bq * head_dim * 4 > rf_b:
+        bq //= 2
+    while flash_smem_bytes(bq, bkv, head_dim) > smem_b or bq * bkv * 4 > rf_b:
+        if bkv > N_UNIT:
+            bkv = _round_up(bkv // 2, N_UNIT)
+        elif bq > WARPGROUP_M:
+            bq //= 2
+        else:
+            break
+    return bq, bkv
+
+
+def decode_block_kv(rows: int, seq_k: int, head_dim: int,
+                    group: int) -> int:
+    """kv split length for decode: the QK^T tiling of the ``rows`` (batch x
+    kv heads) GEMMs of shape (group, seq_k, head_dim).  The decode kernel's
+    grid is (kv splits x rows), so the fill rule is what splits the kv walk
+    when batch x kv heads alone would leave SMs idle."""
+    return attention_blocks(group, seq_k, head_dim, heads=rows)[1]
+
+
+__all__ = ["K_UNIT", "N_UNIT", "WARPGROUP_M", "attention_blocks",
+           "decode_block_kv", "flash_smem_bytes", "gemm_blocks", "gemm_fits"]

@@ -1,0 +1,117 @@
+"""Serving driver: batched prefill + greedy decode over a request queue.
+``python -m repro_torch.launch.serve --arch qwen3-0.6b``.
+
+The counterpart of ``repro/launch/serve.py``: a batch of requests is
+prefilled, then decoded step by step against the KV cache (updated in
+place); when the batch is done its slots go to the next requests in the
+queue.  Runs on ``--device cuda`` unless asked otherwise; ``--attn kernel``
+sends attention through the Hopper kernels, ``--attn plain`` through plain
+PyTorch.  Before serving, as the reference prints its per-layer cycle
+report, this prints ``launch.layers.layer_report``: the model's block GEMMs
+at the decode batch through the Covenant-tiled GEMM kernel, timed on the
+device.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from .. import configs
+from ..kernels.flash_attention import flash_attention, flash_decode
+from ..kernels.matmul import matmul
+from .layers import layer_report
+from ..models import Model, get_model
+
+EOS = 1
+
+
+def serve(model: Model, params: dict, prompts: list, *, batch: int,
+          max_new: int, max_len: int,
+          batch_seconds: list | None = None) -> tuple[list[np.ndarray], int]:
+    """Serve ``prompts`` (equal-length token arrays) greedily, ``batch`` at
+    a time, popping from the end of the queue as the reference does.
+    Returns the tokens each batch produced ((bs, steps) arrays: the prefill
+    token, then one per decode step) and the count of new tokens; appends
+    each batch's wall seconds to ``batch_seconds`` when given."""
+    queue = list(prompts)
+    outputs = []
+    total_tokens = 0
+    while queue:
+        t0 = time.perf_counter()
+        batch_prompts = [queue.pop() for _ in range(min(batch, len(queue)))]
+        bs = len(batch_prompts)
+        toks = torch.as_tensor(np.stack(batch_prompts), dtype=torch.long,
+                               device=model.device)
+        cache = model.init_cache(bs, max_len)
+        logits, cache = model.prefill(params, {"tokens": toks}, cache)
+        tok = logits.argmax(-1)
+        steps = [tok]
+        done = np.zeros(bs, bool)
+        for _ in range(max_new):
+            logits, cache = model.decode_step(params, tok, cache)
+            tok = logits.argmax(-1)
+            steps.append(tok)
+            total_tokens += int((~done).sum())
+            done |= tok.cpu().numpy() == EOS
+            if done.all():
+                break
+        outputs.append(torch.stack(steps, 1).cpu().numpy())
+        if batch_seconds is not None:
+            batch_seconds.append(time.perf_counter() - t0)
+    return outputs, total_tokens
+
+
+def kernel_launches() -> dict[str, int]:
+    return {"matmul": matmul.launches,
+            "flash_attention": flash_attention.launches,
+            "flash_decode": flash_decode.launches}
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list(configs.ARCHS))
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--requests", type=int, default=12)
+    ap.add_argument("--max-len", type=int, default=96)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--attn", choices=("kernel", "plain"), default="kernel")
+    args = ap.parse_args(argv)
+
+    cfg = configs.get_config(args.arch, smoke=args.smoke)
+    before = kernel_launches()
+    print(layer_report(cfg, tokens=args.batch, device=args.device,
+                       seed=args.seed))
+    model = get_model(cfg, device=args.device, attn=args.attn)
+    params = model.init_params(args.seed)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(2, cfg.vocab, args.prompt_len)
+               for _ in range(args.requests)]
+    per_batch: list[float] = []
+    t0 = time.perf_counter()
+    _, total_tokens = serve(model, params, prompts, batch=args.batch,
+                            max_new=args.max_new, max_len=args.max_len,
+                            batch_seconds=per_batch)
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    print(f"[serve] {cfg.name} on {args.device} (attn={args.attn}): "
+          f"{len(prompts)} requests, {total_tokens} new tokens in {dt:.2f}s "
+          f"({total_tokens / dt:.1f} tok/s); per batch "
+          + ", ".join(f"{b:.3f}s" for b in per_batch))
+    print("[serve] kernel launches: " +
+          " ".join(f"{k}={v}" for k, v in launches.items()))
+    return {"requests": len(prompts), "new_tokens": total_tokens,
+            "seconds": dt, "tok_per_s": total_tokens / dt,
+            "batch_seconds": per_batch, "launches": launches}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,60 @@
+"""Model zoo: the PyTorch counterparts of ``repro.models``.
+
+``get_model(cfg)`` returns the uniform ``Model`` API the server uses:
+
+* ``init_params(seed)``                     -> parameter dict
+* ``init_cache(batch, max_len)``            -> serving cache
+* ``prefill(params, batch, cache)``         -> (last logits (B,V), cache)
+* ``decode_step(params, tokens, cache)``    -> (logits (B,V), cache)
+
+So far it holds the ``dense`` family; ``loss_fn`` comes with the training
+slice and ``extra_inputs`` with the encoder-decoder and VLM families.  Everything runs on ``device`` (``cuda`` unless the caller asks for
+``cpu``); ``attn`` picks the attention path (``models.attention``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from . import attention, common, config, transformer
+from .config import ArchConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    device: torch.device
+    init_params: Callable[[int], dict]
+    init_cache: Callable[[int, int], dict]
+    prefill: Callable[[dict, dict, dict], tuple]
+    decode_step: Callable[[dict, Any, dict], tuple]
+
+
+def get_model(cfg: ArchConfig, *, device: str | torch.device = "cuda",
+              attn: str = "kernel") -> Model:
+    device = torch.device(device)
+
+    def init_params(seed: int) -> dict:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return transformer.init_params(cfg, gen)
+
+    if cfg.family == "dense":
+        return Model(
+            cfg,
+            device,
+            init_params=init_params,
+            init_cache=lambda bs, ml: transformer.init_cache(
+                cfg, bs, ml, device=device),
+            prefill=lambda p, b, c: transformer.prefill(
+                cfg, p, b["tokens"], c, attn=attn),
+            decode_step=lambda p, t, c: transformer.decode_step(
+                cfg, p, t, c, attn=attn),
+        )
+    raise KeyError(f"model family {cfg.family!r} is not ported yet")
+
+
+__all__ = ["ArchConfig", "Model", "attention", "common", "config",
+           "get_model", "transformer"]

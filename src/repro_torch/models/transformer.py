@@ -1,0 +1,257 @@
+"""Dense decoder-only transformer LM.
+
+The counterpart of ``repro/models/transformer.py`` for the dense path
+(qwen3: qk-norm, GQA, tied embeddings).  The reference stacks each layer's
+parameters by group and scans over groups; here ``params["layers"]`` is a
+list with one dict per layer and the scan is a Python loop.  The KV cache
+is a list with one ``{"k", "v"}`` pair of (B, Hkv, S, D) tensors per layer,
+updated in place by ``prefill`` and ``decode_step``.
+
+``attn`` picks the attention path: ``"kernel"`` sends prefill and decode
+attention through ``repro_torch.kernels.ops`` (the Hopper kernels on a
+CUDA tensor, their plain versions on a CPU one), ``"plain"`` through the
+plain functions of ``models.attention``.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import attention as attn_lib
+from .common import (apply_mlp, apply_norm, apply_rope, cdt, dense_init,
+                     embed_tokens, init_embed, init_mlp, init_norm,
+                     logits_from_hidden, pdt, rms_head_norm, rope_frequencies)
+from .config import ArchConfig
+
+# ---------------------------------------------------------------------------
+# layer pattern helpers
+# ---------------------------------------------------------------------------
+
+
+def layer_pattern(cfg: ArchConfig) -> list[bool]:
+    """Per-position-in-group flag: True = sliding-window (local) layer."""
+    local, glob = cfg.local_global
+    if local + glob == 0:
+        return [cfg.window > 0]  # uniform window (or full) single layer
+    return [True] * local + [False] * glob
+
+
+def layer_is_local(cfg: ArchConfig) -> list[bool]:
+    """The ``layer_pattern`` flag of every layer, in order."""
+    pattern = layer_pattern(cfg)
+    return [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def init_attn(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    dtype = pdt(cfg)
+    p = {
+        "wq": dense_init(gen, (d, hq * hd), dtype),
+        "wk": dense_init(gen, (d, hkv * hd), dtype),
+        "wv": dense_init(gen, (d, hkv * hd), dtype),
+        "wo": dense_init(gen, (hq * hd, d), dtype),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=gen.device)
+    return p
+
+
+def init_layer(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    p = {
+        "ln1": init_norm(cfg, gen.device),
+        "attn": init_attn(cfg, gen),
+        "mlp": init_mlp(cfg, gen),
+    }
+    if not cfg.parallel_block:
+        p["ln2"] = init_norm(cfg, gen.device)
+    return p
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    """Random parameters drawn from ``gen`` on ``gen.device``."""
+    return {
+        "embed": init_embed(cfg, gen),
+        "layers": [init_layer(cfg, gen) for _ in range(cfg.n_layers)],
+        "ln_f": init_norm(cfg, gen.device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# attention projection / core
+# ---------------------------------------------------------------------------
+
+
+def _qkv(cfg: ArchConfig, p: dict, x: torch.Tensor):
+    b, s, d = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, hq, hd).transpose(1, 2)
+    k = (x @ p["wk"].to(x.dtype)).reshape(b, s, hkv, hd).transpose(1, 2)
+    v = (x @ p["wv"].to(x.dtype)).reshape(b, s, hkv, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rms_head_norm(q, p["q_norm"])
+        k = rms_head_norm(k, p["k_norm"])
+    return q, k, v
+
+
+def _self_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
+                    local: bool, rope: tuple | None, attn: str):
+    """(attention output before ``wo``, k, v) over the whole sequence;
+    ``rope`` is the (sin, cos) of the positions, None without RoPE."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, p, x)
+    if rope is not None:
+        q = apply_rope(q, *rope)
+        k = apply_rope(k, *rope)
+    window = cfg.window if local else 0
+    o = attn_lib.prefill_attention(q, k, v, window=window, attn=attn)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    return o, k, v
+
+
+def _rope(cfg: ArchConfig, positions: torch.Tensor) -> tuple | None:
+    """(sin, cos) shared by every layer (the reference recomputes them per
+    layer inside its scan; the values are the same)."""
+    return rope_frequencies(cfg, positions) if cfg.rope_frac > 0 else None
+
+
+def _residual_block(cfg: ArchConfig, lp: dict, x: torch.Tensor,
+                    h: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    a = o @ lp["attn"]["wo"].to(x.dtype)
+    if cfg.parallel_block:  # command-r: attn + mlp from the same norm
+        return x + a + apply_mlp(cfg, lp["mlp"], h)
+    x = x + a
+    h2 = apply_norm(cfg, lp["ln2"], x)
+    return x + apply_mlp(cfg, lp["mlp"], h2)
+
+
+def layer_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *, local: bool,
+                positions: torch.Tensor, attn: str = "kernel"
+                ) -> torch.Tensor:
+    h = apply_norm(cfg, p["ln1"], x)
+    o, _, _ = _self_attention(cfg, p["attn"], h, local=local,
+                              rope=_rope(cfg, positions), attn=attn)
+    return _residual_block(cfg, p, x, h, o)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+            attn: str = "kernel") -> torch.Tensor:
+    """Returns final hidden states (B,S,D)."""
+    x = embed_tokens(cfg, params["embed"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for lp, local in zip(params["layers"], layer_is_local(cfg)):
+        x = layer_apply(cfg, lp, x, local=local, positions=positions,
+                        attn=attn)
+    return apply_norm(cfg, params["ln_f"], x)
+
+
+# ---------------------------------------------------------------------------
+# KV cache + serving
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               device: torch.device | str = "cuda") -> dict:
+    """Local (window) layers get window-sized rolling caches; global layers
+    full ``max_len``."""
+    dtype = cdt(cfg)
+    hkv, hd = cfg.n_kv_heads, cfg.hd
+    caches = []
+    for local in layer_is_local(cfg):
+        slen = min(cfg.window, max_len) if (local and cfg.window) else max_len
+        caches.append({
+            "k": torch.zeros((batch, hkv, slen, hd), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, hkv, slen, hd), dtype=dtype,
+                             device=device),
+        })
+    return {"layers": caches,
+            "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _cache_write_prefill(cache_k: torch.Tensor, k: torch.Tensor) -> None:
+    """Write a full prefill (B,Hkv,S,D) into the cache, in place.  Rolling
+    caches (w < s) keep the last w tokens at their canonical slots
+    ``t % w`` so decode's rolling writes overwrite the oldest entry."""
+    w = cache_k.shape[2]
+    s = k.shape[2]
+    if s >= w:
+        last = k[:, :, s - w:].to(cache_k.dtype)
+        cache_k.copy_(torch.roll(last, s % w, dims=2))
+    else:
+        cache_k[:, :, :s] = k.to(cache_k.dtype)
+
+
+def _scatter_write(cache_k: torch.Tensor, k_new: torch.Tensor,
+                   pos: torch.Tensor) -> None:
+    """Write one token per row (B,Hkv,D) at per-row slots ``pos``, in
+    place."""
+    b, hkv = cache_k.shape[:2]
+    bi = torch.arange(b, device=cache_k.device)[:, None]
+    hi = torch.arange(hkv, device=cache_k.device)[None, :]
+    cache_k[bi, hi, pos[:, None].long()] = k_new.to(cache_k.dtype)
+
+
+def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+            cache: dict, attn: str = "kernel") -> tuple[torch.Tensor, dict]:
+    """Process the prompt; returns (last-token logits (B,V), the cache),
+    whose k/v tensors are filled in place."""
+    x = embed_tokens(cfg, params["embed"], tokens)
+    s = x.shape[1]
+    rope = _rope(cfg, torch.arange(s, device=x.device))
+    for lp, local, kv in zip(params["layers"], layer_is_local(cfg),
+                             cache["layers"]):
+        h = apply_norm(cfg, lp["ln1"], x)
+        o, k, v = _self_attention(cfg, lp["attn"], h, local=local,
+                                  rope=rope, attn=attn)
+        _cache_write_prefill(kv["k"], k)
+        _cache_write_prefill(kv["v"], v)
+        x = _residual_block(cfg, lp, x, h, o)
+    h = apply_norm(cfg, params["ln_f"], x[:, -1:])
+    logits = logits_from_hidden(cfg, params["embed"], h)[:, 0]
+    return logits, {"layers": cache["layers"], "length": cache["length"] + s}
+
+
+def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+                cache: dict, attn: str = "kernel"
+                ) -> tuple[torch.Tensor, dict]:
+    """One token for every sequence.  tokens: (B,) int; the cache's k/v
+    tensors are updated in place."""
+    b = tokens.shape[0]
+    x = embed_tokens(cfg, params["embed"], tokens[:, None])  # (B,1,D)
+    length = cache["length"]  # (B,)
+    rope = _rope(cfg, length[:, None])
+    slots = {}  # cache width -> (write slot, valid length), as per layer
+    for lp, kv in zip(params["layers"], cache["layers"]):
+        h = apply_norm(cfg, lp["ln1"], x)
+        q, k, v = _qkv(cfg, lp["attn"], h)       # (B,H,1,D)
+        if rope is not None:
+            q = apply_rope(q, *rope)
+            k = apply_rope(k, *rope)
+        w = kv["k"].shape[2]
+        if w not in slots:
+            slots[w] = (length % w, torch.clamp(length + 1, max=w))
+        pos, valid = slots[w]
+        _scatter_write(kv["k"], k[:, :, 0], pos)
+        _scatter_write(kv["v"], v[:, :, 0], pos)
+        # as in the reference, a local layer's window is its rolling cache
+        o = attn_lib.decode_attention_for(q[:, :, 0], kv["k"], kv["v"],
+                                          valid, attn=attn)
+        o = o.reshape(b, 1, cfg.n_heads * cfg.hd)
+        x = _residual_block(cfg, lp, x, h, o)
+    h = apply_norm(cfg, params["ln_f"], x)
+    logits = logits_from_hidden(cfg, params["embed"], h)[:, 0]
+    return logits, {"layers": cache["layers"], "length": length + 1}
+
+
+__all__ = ["decode_step", "forward", "init_cache", "init_params",
+           "layer_apply", "layer_is_local", "layer_pattern", "prefill"]
