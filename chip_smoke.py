@@ -5,21 +5,29 @@
 1. builds the Hopper kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, all at once) and prints the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, in the
-   working dtype, at the shapes the main path gives it, and times kernel,
+   working dtype, at the shapes the main paths give it, and times kernel,
    plain version and one PyTorch library call with CUDA events;
-3. drives the main path through ``repro_torch.launch.serve``: the Covenant
-   GEMM report of the model's block GEMMs, then full-width qwen3-0.6b with
-   seeded random bf16 weights serving 8 requests (batch 4, prompt 512, 32
-   new tokens) with ``--attn kernel``, every launch counter set to 0 just
-   before and read just after; then compares the kernel path with the plain
-   path on the same weights, and profiles one more batch for the card's
-   busy share;
-4. prints a ``kernels`` JSON line and, last, the ``ok`` JSON line; the
+3. serve: drives ``repro_torch.launch.serve``: the Covenant GEMM report of
+   the model's block GEMMs, then full-width qwen3-0.6b with seeded random
+   bf16 weights serving 8 requests (batch 4, prompt 512, 32 new tokens)
+   with ``--attn kernel``, every launch counter set to 0 just before and
+   read just after; then compares the kernel path with the plain path on
+   the same weights, and profiles one more batch for the card's busy share;
+4. train: holds one full-width train step's loss and gradient, kernel
+   attention against plain attention on the same weights and batch, in f32
+   and in bf16; then drives ``repro_torch.launch.train`` (the block-GEMM
+   report at 8 x 512 tokens, then 6 AdamW steps of full-width qwen3-0.6b,
+   batch 8 x 512 in 2 microbatches, checkpoints every 3 steps under
+   ``build/train_ckpt``) with every launch counter set to 0 just before and
+   read just after, and resumes the same run to 8 steps from its step-6
+   checkpoint; then profiles one more train step for the card's busy share;
+5. prints a ``kernels`` JSON line and, last, the ``ok`` JSON line; the
    per-case details go to ``chiprun_out/chip_smoke.json``.
 
 Every phase raises on failure; there is no CPU fallback.
 """
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -34,15 +42,22 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain, flash_decode, flash_decode_plain)
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_fwd_lse, flash_attention_fwd_lse_plain,
+    flash_attention_plain, flash_decode, flash_decode_plain)
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
-from repro_torch.kernels.tiling import (attention_blocks,  # noqa: E402
-                                        decode_block_kv, gemm_blocks)
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.kernels.tiling import (  # noqa: E402
+    attention_blocks, attention_bwd_blocks, decode_block_kv, gemm_blocks)
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.layers import lm_layer_gemms, mean_ms  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import (make_loss_with_accum,  # noqa: E402
+                                 make_train_step)
 from repro_torch.targets import H100  # noqa: E402
+from repro_torch.tree import tree_paths  # noqa: E402
 
 ARCH = "qwen3-0.6b"
 BATCH, PROMPT, MAX_NEW, REQUESTS, MAX_LEN = 4, 512, 32, 8, 1024
@@ -50,9 +65,26 @@ SERVE_ARGS = ["--arch", ARCH, "--batch", str(BATCH), "--prompt-len",
               str(PROMPT), "--max-new", str(MAX_NEW), "--requests",
               str(REQUESTS), "--max-len", str(MAX_LEN), "--seed", "0",
               "--device", "cuda", "--attn", "kernel"]
+OUT_DIR = ROOT / "chiprun_out"
+# about 6 GB a checkpoint at full width: under build/, which .gitignore
+# lists and which does not come back with chiprun_out/; removed at the end
+CKPT_DIR = ROOT / "build" / "train_ckpt"
+TRAIN_BATCH, TRAIN_SEQ, MICROBATCHES, TRAIN_STEPS = 8, 512, 2, 6
+TRAIN_ARGS = ["--arch", ARCH, "--seq-len", str(TRAIN_SEQ), "--global-batch",
+              str(TRAIN_BATCH), "--microbatches", str(MICROBATCHES),
+              "--ckpt-every", "3", "--seed", "0", "--device", "cuda",
+              "--attn", "kernel", "--ckpt-dir", str(CKPT_DIR)]
+MB = TRAIN_BATCH // MICROBATCHES  # the rows one forward/backward sees
 U32 = 2.0 ** -24          # f32 unit roundoff
 ATTN_BF16_ATOL = 2e-2     # tests/test_kernels.py bf16 attention bound
+ATTN_F32_ATOL = 2e-3      # tests/test_kernels.py f32 attention bound
+LSE_ATOL = 1e-3           # f32 log-sum-exp of the same inputs, values < 10
 LOGITS_REL_L2 = 5e-2      # see compare_paths
+LOSS_REL_F32 = 1e-4       # see compare_train_paths
+GRAD_REL_L2_F32 = 1e-3
+GRAD_REL_L2_BF16 = 5e-2
+# the leaves whose gradients the attention kernels give directly
+ATTN_LEAVES = {("attn", n) for n in ("wq", "wk", "wv", "q_norm", "k_norm")}
 KERNELS = {
     "matmul": dict(route="cuda", source="src/repro_torch/csrc/matmul.cu",
                    replaces="src/repro/kernels/matmul.py:37"),
@@ -62,7 +94,15 @@ KERNELS = {
     "flash_decode": dict(
         route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
         replaces="src/repro/kernels/flash_attention.py:147"),
+    "flash_attention_fwd_lse": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:310"),
+    "flash_attention_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:261"),
 }
+KERNEL_FNS = (matmul, flash_attention, flash_decode, flash_attention_fwd_lse,
+              flash_attention_bwd)
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -212,6 +252,115 @@ def check_decode(rec: Record, dev, gen) -> None:
             library_ms=library_ms, main_path=True)
 
 
+def _train_qkv(dev, gen, b, hq, hkv, s, d, dtype):
+    shapes = ((b * hq, s, d), (b * hkv, s, d), (b * hkv, s, d),
+              (b * hq, s, d))
+    return [torch.randn(sh, generator=gen, device=dev).to(dtype)
+            for sh in shapes]
+
+
+def _pairs(b, hq, s, causal, window) -> float:
+    """Visible (q, k) pairs of a (B*Hq, S, S) self attention."""
+    i = np.arange(s)[:, None]
+    j = np.arange(s)[None, :]
+    mask = np.ones((s, s), bool)
+    if causal:
+        mask &= j <= i
+    if window:
+        mask &= j > i - window
+    return float(b * hq * mask.sum())
+
+
+def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
+                  window, main_path) -> None:
+    q, k, v, _ = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype)
+    bq, bkv = attention_blocks(s, s, d, heads=b * hq)
+    run = lambda: flash_attention_fwd_lse(  # noqa: E731
+        q, k, v, window=window, block_q=bq, block_kv=bkv)
+    out, lse = run()
+    want, want_lse = flash_attention_fwd_lse_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    lse_err = float((lse - want_lse).abs().max())
+    tol = ATTN_BF16_ATOL if dtype == torch.bfloat16 else ATTN_F32_ATOL
+    del out, lse, want, want_lse
+    ms = mean_ms(run, dev, 10)
+    plain_ms = mean_ms(lambda: flash_attention_fwd_lse_plain(
+        q, k, v, window=window), dev, 10)
+    library_ms = None
+    if dtype == torch.bfloat16 and not window:
+        # aten's flash forward, which also returns the logsumexp; it takes
+        # equal head counts, so k and v are repeated before the timing
+        q4 = q.reshape(b, hq, s, d)
+        k4 = k.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
+        v4 = v.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
+        library_ms = mean_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                q4, k4, v4, 0.0, True), dev, 10)
+    pairs = _pairs(b, hq, s, True, window)
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * q.element_size() \
+        + b * hq * s * 4
+    peak = H100["peak_bf16_flops"] if dtype == torch.bfloat16 \
+        else H100["peak_f32_flops"]
+    b_ms, b_by = bound(4.0 * pairs * d, peak, nbytes)
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    rec.add("flash_attention_fwd_lse",
+            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal w{window or 0} {dt} "
+            f"b{bq}x{bkv} (lse err {lse_err:.1e})", err=err,
+            ok=err <= tol and lse_err <= LSE_ATOL, tol=tol, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms, main_path=main_path)
+
+
+def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
+              main_path) -> None:
+    q, k, v, do = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype)
+    bq, bkv = attention_bwd_blocks(s, s, d, heads=b * hq)
+    out, lse = flash_attention_fwd_lse_plain(q, k, v, window=window)
+    # the model's q_offset (Sk - Sq = 0 for self attention)
+    run = lambda: flash_attention_bwd(  # noqa: E731
+        q, k, v, out, lse, do, window=window, block_q=bq, block_kv=bkv)
+    got = run()
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, window=window)
+    torch.cuda.synchronize()
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(got, want))
+    tol = ATTN_BF16_ATOL if dtype == torch.bfloat16 else ATTN_F32_ATOL
+    del got, want
+    ms = mean_ms(run, dev, 10)
+    plain_ms = mean_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, out, lse, do, window=window), dev, 5)
+    library_ms = None
+    if dtype == torch.bfloat16 and not window:
+        # aten's flash backward on its own forward's residuals (k and v
+        # repeated, so it returns per-q-head dk, dv without the group sum)
+        q4 = q.reshape(b, hq, s, d)
+        k4 = k.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
+        v4 = v.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
+        do4 = do.reshape(b, hq, s, d)
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            q4, k4, v4, 0.0, True)
+        o4, lse4, cq, ck, mq, mk, seed, offset = fwd[:8]
+        aten_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        library_ms = mean_ms(lambda: aten_bwd(
+            do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, True, seed,
+            offset), dev, 10)
+    pairs = _pairs(b, hq, s, True, window)
+    # read q, k, v, out, dout and lse once, write dq, dk, dv once; five
+    # products (S, dP, dq, dk, dv) of 2 * pairs * D operations each
+    nbytes = (4 * b * hq * s * d + 4 * b * hkv * s * d) * q.element_size() \
+        + b * hq * s * 4
+    peak = H100["peak_bf16_flops"] if dtype == torch.bfloat16 \
+        else H100["peak_f32_flops"]
+    b_ms, b_by = bound(10.0 * pairs * d, peak, nbytes)
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    rec.add("flash_attention_bwd",
+            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal w{window or 0} {dt} "
+            f"b{bq}x{bkv}", err=err, ok=err <= tol, tol=tol, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms, main_path=main_path)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path, then kernel path against plain path
 # ---------------------------------------------------------------------------
@@ -262,20 +411,17 @@ def compare_paths(cfg, dev) -> tuple[dict, object, dict]:
     return out, kmodel, params
 
 
-def profile_batch(model, params) -> dict:
-    """One batch of the served run (kernel path) under ``torch.profiler``:
-    wall ms, the summed device time of its kernels (one stream, so the
-    time the card is busy) and the kernels that take most of it."""
+def _profile(fn, label: str) -> dict:
+    """``fn()`` once under ``torch.profiler``: wall ms, the summed device
+    time of its kernels (one stream, so the time the card is busy) and the
+    kernels that take most of it."""
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(2, model.cfg.vocab, PROMPT) for _ in range(BATCH)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve.serve(model, params, prompts, batch=BATCH, max_new=MAX_NEW,
-                    max_len=MAX_LEN)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -283,13 +429,172 @@ def profile_batch(model, params) -> dict:
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"[profile] one batch under the profiler: wall {wall_ms:.1f} ms, "
+    print(f"[profile] {label} under the profiler: wall {wall_ms:.1f} ms, "
           f"device kernels {busy:.1f} ms, busy share {busy / wall_ms:.3f}",
           flush=True)
     for name, ms, calls in rows[:8]:
         print(f"[profile]   {ms:9.2f} ms {calls:6d}x  {name[:80]}", flush=True)
     return dict(wall_ms=wall_ms, device_ms=busy, busy_share=busy / wall_ms,
                 top=[dict(kernel=n, ms=m, calls=c) for n, m, c in rows[:8]])
+
+
+def profile_batch(model, params) -> dict:
+    """One batch of the served run (kernel path) under the profiler."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(2, model.cfg.vocab, PROMPT) for _ in range(BATCH)]
+    return _profile(lambda: serve.serve(model, params, prompts, batch=BATCH,
+                                        max_new=MAX_NEW, max_len=MAX_LEN),
+                    "one serve batch")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: training
+# ---------------------------------------------------------------------------
+
+
+def compare_train_paths(cfg, dev) -> dict:
+    """One full-width train step's loss and gradient (one microbatch,
+    ``MB`` x ``TRAIN_SEQ``), kernel attention against plain attention, same
+    weights and batch, in f32 and then in bf16.
+
+    Bounds.  In f32 the two paths differ only in the order of f32 sums
+    inside attention (the kernels' online softmax over kv blocks against
+    einsum + softmax): a few units of f32 roundoff (2^-24) per attention
+    output, carried through 28 layers forward and back.  A CPU run of the
+    same comparison at full width and 4 layers gave a gradient relative L2
+    of 1e-6; so |dloss| / |loss| <= 1e-4 and a relative L2 of the
+    flattened gradient <= 1e-3 leave two to three orders of headroom for
+    depth and order.  In bf16 both paths round attention's inputs and
+    outputs to bf16 at different points, about one bf16 rounding (2^-8)
+    per layer, forward and backward: as for the served logits
+    (``compare_paths``), sqrt(28) * 2^-8 ~= 2.1e-2, under the serve gate's
+    5e-2.  The softmax of the loss does not amplify it: with these random
+    weights the logits have a standard deviation near 32, so its gradient
+    is nearly one-hot and moves little with the logits (the same CPU run
+    gave 8.5e-3 at 4 layers, 2.2e-2 scaled by sqrt(28 / 4)).
+
+    The whole gradient's norm is mostly the tied embedding's (its share is
+    printed), and a wrong dq or dk/dv moves the attention leaves first.
+    So in f32 the largest relative L2 over the leaves that the kernels'
+    gradients reach directly (``ATTN_LEAVES`` of every layer) is gated at
+    the same 1e-3: each is a sum of f32 products over the 4 x 512 tokens,
+    with the same roundoff argument and the same headroom.  In bf16 they
+    are printed only: their rounding differences add up over the layers
+    above a leaf, with no bound derived per leaf."""
+    rng = np.random.default_rng(3)
+    out = {}
+    for dt, loss_tol, grad_tol in (("float32", LOSS_REL_F32, GRAD_REL_L2_F32),
+                                   ("bfloat16", None, GRAD_REL_L2_BF16)):
+        c = cfg.replace(param_dtype=dt, compute_dtype=dt)
+        batch = SyntheticLM(vocab=c.vocab, seq_len=TRAIN_SEQ,
+                            global_batch=MB, seed=int(rng.integers(1 << 30))
+                            ).batch(0)
+        res = {}
+        params = get_model(c, device=dev).init_params(1)
+        for attn in ("kernel", "plain"):
+            model = get_model(c, device=dev, attn=attn)
+            res[attn] = make_loss_with_accum(model.loss_fn, 1)(params, batch)
+        (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        num = den = embed2 = 0.0
+        attn_worst, attn_leaf = 0.0, None
+        per_layer: dict = {}
+        for (path, a), (_, b) in zip(tree_paths(gk), tree_paths(gp)):
+            d2 = float((a.float() - b.float()).square().sum())
+            n2 = float(b.float().square().sum())
+            num, den = num + d2, den + n2
+            leaf_rel = (d2 / max(n2, 1e-30)) ** 0.5
+            if path[0] == "embed":
+                embed2 += n2
+            if path[0] == "layers" and path[2:] in ATTN_LEAVES \
+                    and leaf_rel >= attn_worst:
+                attn_worst, attn_leaf = leaf_rel, path
+            group, leaf = ((f"layer {path[1]:02d}", path[2:])
+                           if path[0] == "layers" else (path[0], path[1:]))
+            per_layer.setdefault(group, []).append(
+                f"{'.'.join(leaf)}={leaf_rel:.1e}")
+        rel = (num / den) ** 0.5
+        embed_share = (embed2 / den) ** 0.5
+        for key, leaves in per_layer.items():
+            print(f"[grad {dt}] {key}: {' '.join(leaves)}", flush=True)
+        finite = all(torch.isfinite(g).all() for _, g in tree_paths(gk))
+        leaf_tol = grad_tol if dt == "float32" else None
+        print(f"[grad {dt}] loss kernel {float(lk):.6f} plain {float(lp):.6f}"
+              f" rel {loss_rel:.3e} (tol {loss_tol}); gradient rel_l2 "
+              f"{rel:.3e} (tol {grad_tol}); worst attention leaf "
+              f"{'.'.join(map(str, attn_leaf))} rel_l2 {attn_worst:.3e} "
+              f"(tol {leaf_tol}); embedding's share of the gradient norm "
+              f"{embed_share:.3f}; finite {finite}", flush=True)
+        if not finite or not np.isfinite(float(lk)):
+            raise AssertionError(f"{dt}: kernel path gradient not finite")
+        if loss_tol is not None and loss_rel > loss_tol:
+            raise AssertionError(f"{dt}: loss rel {loss_rel} > {loss_tol}")
+        if rel > grad_tol:
+            raise AssertionError(f"{dt}: gradient rel_l2 {rel} > {grad_tol}")
+        if leaf_tol is not None and attn_worst > leaf_tol:
+            raise AssertionError(f"{dt}: {attn_leaf} rel_l2 {attn_worst} > "
+                                 f"{leaf_tol}")
+        out[dt] = dict(loss_kernel=float(lk), loss_plain=float(lp),
+                       loss_rel=loss_rel, grad_rel_l2=rel,
+                       attn_leaf_rel_l2=attn_worst,
+                       attn_leaf=".".join(map(str, attn_leaf)),
+                       embed_share=embed_share)
+        del res, gk, gp, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(cfg, dev) -> dict:
+    """One more train step of the main path's shape (kernel attention,
+    AdamW, 2 microbatches of MB x TRAIN_SEQ) under the profiler, after one
+    step outside it."""
+    model = get_model(cfg, device=dev, attn="kernel")
+    params = model.init_params(0)
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    step = make_train_step(model.loss_fn, opt, microbatches=MICROBATCHES)
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, seed=0).batch(0)
+    params, state, _ = step(params, state, batch)
+    return _profile(lambda: float(step(params, state, batch)[2]["loss"]),
+                    "one train step")
+
+
+def train_main_path() -> tuple[dict, dict, dict]:
+    """``launch.train`` for TRAIN_STEPS steps with the counters from 0,
+    then the same run resumed to TRAIN_STEPS + 2.  Returns (the first
+    run's stats, its launches, the resumed run's stats)."""
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    for fn in KERNEL_FNS:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stats = train.main(TRAIN_ARGS + ["--steps", str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    launches = train.kernel_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    rep = stats["report"]
+    print(f"[train] launches on the main path: {launches}; peak device "
+          f"memory {peak_gb:.1f} GiB", flush=True)
+    for name in ("matmul", "flash_attention_fwd_lse", "flash_attention_bwd"):
+        if launches[name] <= 0:
+            raise AssertionError(f"train path never launched {name}")
+    if rep.steps_run != TRAIN_STEPS or not all(np.isfinite(rep.losses)):
+        raise AssertionError(f"train: {rep.steps_run} steps, losses "
+                             f"{rep.losses}")
+    print(f"[train] {stats['ms_per_step']:.1f} ms per step after the first, "
+          f"{stats['tokens_per_s']:.0f} train tokens/s, losses "
+          f"{[round(x, 4) for x in rep.losses]}", flush=True)
+    resumed = train.main(TRAIN_ARGS + ["--steps", str(TRAIN_STEPS + 2),
+                                       "--accel-target", "none"])
+    rrep = resumed["report"]
+    print(f"[train] resumed from {rrep.resumed_from}, ran {rrep.steps_run} "
+          f"steps, losses {[round(x, 4) for x in rrep.losses]}", flush=True)
+    if rrep.resumed_from != TRAIN_STEPS or rrep.steps_run != 2 \
+            or not all(np.isfinite(rrep.losses)):
+        raise AssertionError(f"resume: from {rrep.resumed_from}, "
+                             f"{rrep.steps_run} steps")
+    stats["peak_gib"] = peak_gb
+    return stats, launches, resumed
 
 
 def main() -> None:
@@ -338,22 +643,49 @@ def main() -> None:
     print(f"[phase] kernel checks done at {time.perf_counter() - t0:.1f}s",
           flush=True)
 
-    # phase 3: the main path, counters from 0
-    for fn in (matmul, flash_attention, flash_decode):
+    # phase 3: the serve path, counters from 0
+    for fn in KERNEL_FNS:
         fn.launches = 0
     stats = serve.main(SERVE_ARGS)
     torch.cuda.synchronize()
-    launches = serve.kernel_launches()
-    print(f"[serve] launches on the main path: {launches}", flush=True)
-    for name, n in launches.items():
+    serve_launches = serve.kernel_launches()
+    print(f"[serve] launches on the main path: {serve_launches}", flush=True)
+    for name, n in serve_launches.items():
         if n <= 0:
             raise AssertionError(f"main path never launched {name}")
     rel, model, params = compare_paths(cfg, dev)
     prof = profile_batch(model, params)
+    del model, params
+    torch.cuda.empty_cache()
     print(f"[phase] serve done at {time.perf_counter() - t0:.1f}s: "
           f"{stats['tok_per_s']:.1f} tok/s, rel_l2 {rel}", flush=True)
 
-    # phase 4: the kernels line
+    # phase 4: the train path: its kernels' checks, the step gates, then
+    # the main path with counters from 0, then resume
+    # the train run's layer report gives the GEMM batch x seq rows
+    for g in lm_layer_gemms(cfg, TRAIN_BATCH * TRAIN_SEQ):
+        check_gemm(rec, dev, gen, g.tokens, g.n, g.k, torch.bfloat16,
+                   f"train {g.name.split('_', 3)[-1]}", main_path=True)
+    check_fwd_lse(rec, dev, gen, MB, 16, 8, TRAIN_SEQ, 128, torch.bfloat16,
+                  window=None, main_path=True)
+    check_bwd(rec, dev, gen, MB, 16, 8, TRAIN_SEQ, 128, torch.bfloat16,
+              window=None, main_path=True)
+    check_fwd_lse(rec, dev, gen, 1, 16, 8, 256, 128, torch.float32,
+                  window=16, main_path=False)
+    check_bwd(rec, dev, gen, 1, 16, 8, 256, 128, torch.float32, window=16,
+              main_path=False)
+    gates = compare_train_paths(cfg, dev)
+    try:
+        tstats, train_launches, resumed = train_main_path()
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    train_prof = profile_train_step(cfg, dev)
+    print(f"[phase] train done at {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    # phase 5: the kernels line, launches summed over both main paths
+    launches = {k: serve_launches.get(k, 0) + train_launches[k]
+                for k in train_launches}
     kernels = []
     for name, meta in KERNELS.items():
         cases = [c for c in rec.cases if c["kernel"] == name]
@@ -376,14 +708,22 @@ def main() -> None:
     print(json.dumps({"kernels": kernels}), flush=True)
     for c in rec.cases:
         c.pop("kernel", None)
+    rep = tstats["report"]
     summary = dict(card=smi, build_s=build_s, serve=dict(
         tok_per_s=stats["tok_per_s"], new_tokens=stats["new_tokens"],
         seconds=stats["seconds"], requests=stats["requests"],
         batch_seconds=stats["batch_seconds"]),
-        compare_rel_l2=rel, profile=prof, cases=rec.cases)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
+        compare_rel_l2=rel, profile=prof, train=dict(
+            ms_per_step=tstats["ms_per_step"],
+            tokens_per_s=tstats["tokens_per_s"],
+            step_seconds=rep.step_seconds, losses=rep.losses,
+            peak_gib=tstats["peak_gib"], launches=train_launches,
+            resumed_from=resumed["report"].resumed_from,
+            resumed_steps=resumed["report"].steps_run, gates=gates,
+            profile=train_prof),
+        launches=launches, cases=rec.cases)
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

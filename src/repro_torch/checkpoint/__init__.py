@@ -1,0 +1,4 @@
+"""Checkpoints in the reference's on-disk format (``store``)."""
+from .store import latest_step, load_checkpoint, save_checkpoint
+
+__all__ = ["latest_step", "load_checkpoint", "save_checkpoint"]

@@ -1,4 +1,4 @@
-"""Carry a JAX parameter tree across to the port.
+"""Carry parameter trees between the JAX package's layout and the port's.
 
 ``params_from_jax(cfg, tree)`` takes the tree that
 ``repro.models.transformer.init_params`` returns, with its leaves as numpy
@@ -9,6 +9,11 @@ in the layer pattern); the port keeps one dict per layer, so layer
 ``g * per + j`` is leaf ``[g]`` of subtree ``j``.  Weight layouts stay
 ``(in, out)``, as ``x @ W`` uses them.  numpy has no bfloat16: bf16
 leaves arrive as ``ml_dtypes.bfloat16`` and cross as raw bits.
+
+``params_to_jax`` is the inverse, for any param-shaped tree (params, and
+the optimizer's ``mu``, ``nu`` and ``err``); ``to_reference_layout`` and
+``from_reference_layout`` apply the two to every param-shaped subtree of a
+training state, which is how a checkpoint holds the reference's layout.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from .models.config import ArchConfig
+from .tree import tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -28,27 +34,63 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
-
-
-def params_from_jax(cfg: ArchConfig, tree: dict, *,
-                    device: str | torch.device = "cuda") -> dict:
-    """The port's parameters from a reference tree of numpy leaves."""
+def _unstack(cfg: ArchConfig, tree: dict, leaf) -> dict:
     n_groups, per = cfg.layer_groups()
     stacked = tree["layers"]
     if len(stacked) != per:
         raise ValueError(f"{cfg.name}: expected {per} stacked subtrees, "
                          f"got {len(stacked)}")
-    layers = [_map(stacked[j], lambda a, g=g: _tensor(a[g], device))
+    layers = [tree_map(lambda a, g=g: leaf(a[g]), stacked[j])
               for g in range(n_groups) for j in range(per)]
-    to_t = lambda a: _tensor(a, device)  # noqa: E731
-    return {"embed": _map(tree["embed"], to_t), "layers": layers,
-            "ln_f": _map(tree["ln_f"], to_t)}
+    return {**{k: tree_map(leaf, v) for k, v in tree.items()
+               if k != "layers"}, "layers": layers}
 
 
-__all__ = ["params_from_jax"]
+def params_from_jax(cfg: ArchConfig, tree: dict, *,
+                    device: str | torch.device = "cuda") -> dict:
+    """The port's parameters from a reference tree of numpy leaves."""
+    return _unstack(cfg, tree, lambda a: _tensor(a, device))
+
+
+def params_to_jax(cfg: ArchConfig, tree: dict) -> dict:
+    """The reference's layout of a port param-shaped tree: each layer leaf
+    stacked ``(n_groups, ...)`` in the subtree of its pattern position.
+    Leaves stay tensors on their device (``meta`` ones give the layout's
+    shapes for free)."""
+    n_groups, per = cfg.layer_groups()
+    layers = tree["layers"]
+    if len(layers) != n_groups * per:
+        raise ValueError(f"{cfg.name}: expected {n_groups * per} layers, "
+                         f"got {len(layers)}")
+    stacked = [tree_map(lambda *xs: torch.stack(xs),
+                        *layers[j::per]) for j in range(per)]
+    return {**{k: v for k, v in tree.items() if k != "layers"},
+            "layers": stacked}
+
+
+def _is_params(tree) -> bool:
+    return isinstance(tree, dict) and isinstance(tree.get("layers"), list)
+
+
+def to_reference_layout(cfg: ArchConfig, state):
+    """``params_to_jax`` on every param-shaped subtree (a dict with a
+    ``layers`` list) of ``state``; other leaves as they are."""
+    if _is_params(state):
+        return params_to_jax(cfg, state)
+    if isinstance(state, dict):
+        return {k: to_reference_layout(cfg, v) for k, v in state.items()}
+    return state
+
+
+def from_reference_layout(cfg: ArchConfig, state):
+    """The inverse of ``to_reference_layout``: tensor leaves, each layer's
+    a view of its stacked tensor."""
+    if _is_params(state):
+        return _unstack(cfg, state, lambda a: a)
+    if isinstance(state, dict):
+        return {k: from_reference_layout(cfg, v) for k, v in state.items()}
+    return state
+
+
+__all__ = ["from_reference_layout", "params_from_jax", "params_to_jax",
+           "to_reference_layout"]

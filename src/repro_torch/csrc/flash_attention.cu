@@ -6,6 +6,12 @@
 // `q_offset` of q row 0 in kv positions and the true `seq_k`; and the same
 // `l == 0` guard, so a fully masked row comes out as zeros.
 //
+// The same template, given an `lse` pointer, also replaces
+// flash_attention_fwd_lse (_fa_fwd_lse_kernel): it writes each row's f32
+// log-sum-exp m + log(l) (l == 0 read as 1, so a fully masked row has
+// lse = -1e30), the residual of the backward in flash_attention_bwd.cu.
+// The entry points covenant_flash_attention_fwd_lse_{bf16,f32} take it.
+//
 // One thread block per (q block, batch*head).  On the TPU the kv walk is the
 // sequential third grid axis and the running state lives in VMEM scratch
 // between grid steps; Hopper blocks run in no order, so here the kv walk is
@@ -77,7 +83,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T, int MaxTm, int MaxTn>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, FaParams p) {
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, FaParams p) {
   extern __shared__ __align__(16) float smem[];
   const int ldq = p.d + 1;
   const int ldk = p.d + 1;
@@ -243,6 +250,13 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
+  if (lse != nullptr) {
+    for (int r = tid; r < p.bq && q0 + r < p.sq; r += nthreads) {
+      const float l = l_s[r];
+      lse[static_cast<size_t>(bh) * p.sq + q0 + r] =
+          m_s[r] + logf(l == 0.f ? 1.f : l);
+    }
+  }
   if (!o_active) return;
 #pragma unroll
   for (int i = 0; i < MaxTm; ++i) {
@@ -260,8 +274,9 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int MaxTm, int MaxTn>
-int launch_tile(const void* q, const void* k, const void* v, void* o, int bh,
-                const FaParams& p, int smem_bytes, cudaStream_t stream) {
+int launch_tile(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, const FaParams& p, int smem_bytes,
+                cudaStream_t stream) {
   auto kernel = fa_fwd_kernel<T, MaxTm, MaxTn>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -269,21 +284,22 @@ int launch_tile(const void* q, const void* k, const void* v, void* o, int bh,
   dim3 grid((p.sq + p.bq - 1) / p.bq, bh);
   kernel<<<grid, kThreads, smem_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), p);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int MaxTm>
-int launch_tm(const void* q, const void* k, const void* v, void* o, int bh,
-              const FaParams& p, int max_tn, int smem_bytes, cudaStream_t s) {
+int launch_tm(const void* q, const void* k, const void* v, void* o, float* lse,
+              int bh, const FaParams& p, int max_tn, int smem_bytes,
+              cudaStream_t s) {
   if (max_tn <= 4)
-    return launch_tile<T, MaxTm, 4>(q, k, v, o, bh, p, smem_bytes, s);
-  return launch_tile<T, MaxTm, 8>(q, k, v, o, bh, p, smem_bytes, s);
+    return launch_tile<T, MaxTm, 4>(q, k, v, o, lse, bh, p, smem_bytes, s);
+  return launch_tile<T, MaxTm, 8>(q, k, v, o, lse, bh, p, smem_bytes, s);
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           const FaParams& p, int smem_bytes, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, const FaParams& p, int smem_bytes, void* stream) {
   const int max_tm = max(p.s_tm, p.o_tm);
   const int max_tn = max(p.s_tn, p.o_tn);
   if (max_tm < 1 || max_tm > 8 || max_tn < 1 || max_tn > 8 ||
@@ -291,29 +307,45 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
       p.bq < 1 || p.bkv < 1 || p.group < 1 || bh % p.group != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (max_tm <= 1) return launch_tm<T, 1>(q, k, v, o, bh, p, max_tn, smem_bytes, s);
-  if (max_tm <= 2) return launch_tm<T, 2>(q, k, v, o, bh, p, max_tn, smem_bytes, s);
-  if (max_tm <= 4) return launch_tm<T, 4>(q, k, v, o, bh, p, max_tn, smem_bytes, s);
-  return launch_tm<T, 8>(q, k, v, o, bh, p, max_tn, smem_bytes, s);
+  if (max_tm <= 1) return launch_tm<T, 1>(q, k, v, o, lse, bh, p, max_tn, smem_bytes, s);
+  if (max_tm <= 2) return launch_tm<T, 2>(q, k, v, o, lse, bh, p, max_tn, smem_bytes, s);
+  if (max_tm <= 4) return launch_tm<T, 4>(q, k, v, o, lse, bh, p, max_tn, smem_bytes, s);
+  return launch_tm<T, 8>(q, k, v, o, lse, bh, p, max_tn, smem_bytes, s);
 }
 
 }  // namespace
 
+#define FA_PARAMS                                                              \
+  FaParams p{sq,   sk,         d,      group,    bq,    bkv,  causal,          \
+             has_window, window, q_offset, scale, s_tm, s_tn, s_txc,           \
+             s_tyc, o_tm,      o_tn,   o_txc,    o_tyc};
+
+#define FA_ARGS                                                                \
+  int bh, int sq, int sk, int d, int group, int bq, int bkv, int causal,       \
+      int has_window, int window, int q_offset, float scale, int s_tm,         \
+      int s_tn, int s_txc, int s_tyc, int o_tm, int o_tn, int o_txc,           \
+      int o_tyc, int smem_bytes, void* stream
+
 #define FA_ENTRY(NAME, T)                                                      \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,   \
-                      int bh, int sq, int sk, int d, int group, int bq,        \
-                      int bkv, int causal, int has_window, int window,         \
-                      int q_offset, float scale, int s_tm, int s_tn,           \
-                      int s_txc, int s_tyc, int o_tm, int o_tn, int o_txc,     \
-                      int o_tyc, int smem_bytes, void* stream) {               \
-    FaParams p{sq,   sk,         d,      group,    bq,    bkv,  causal,        \
-               has_window, window, q_offset, scale, s_tm, s_tn, s_txc,         \
-               s_tyc, o_tm,      o_tn,   o_txc,    o_tyc};                     \
-    return launch<T>(q, k, v, o, bh, p, smem_bytes, stream);                   \
+                      FA_ARGS) {                                               \
+    FA_PARAMS                                                                  \
+    return launch<T>(q, k, v, o, nullptr, bh, p, smem_bytes, stream);          \
+  }
+
+// the same, writing the (bh, sq) f32 log-sum-exp to `lse`
+#define FA_LSE_ENTRY(NAME, T)                                                  \
+  extern "C" int NAME(const void* q, const void* k, const void* v, void* o,   \
+                      void* lse, FA_ARGS) {                                    \
+    FA_PARAMS                                                                  \
+    return launch<T>(q, k, v, o, static_cast<float*>(lse), bh, p, smem_bytes,  \
+                     stream);                                                  \
   }
 
 FA_ENTRY(covenant_flash_attention_bf16, __nv_bfloat16)
 FA_ENTRY(covenant_flash_attention_f32, float)
+FA_LSE_ENTRY(covenant_flash_attention_fwd_lse_bf16, __nv_bfloat16)
+FA_LSE_ENTRY(covenant_flash_attention_fwd_lse_f32, float)
 
 extern "C" const char* covenant_flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

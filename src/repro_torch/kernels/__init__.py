@@ -4,7 +4,9 @@
 ``ref`` holds the plain-PyTorch oracles every kernel is tested against;
 ``tiling`` is the Algorithm-1 -> block-geometry bridge; ``matmul`` and
 ``flash_attention`` hold the wrappers of ``csrc/*.cu`` beside their plain
-versions; ``_build`` compiles and binds the CUDA sources.
+versions (and ``FlashAttention``, the autograd Function over the LSE
+forward and the backward); ``_build`` compiles and binds the CUDA
+sources.
 """
 from . import flash_attention, matmul, ops, ref, tiling
 from .ops import (covenant_attention, covenant_decode_attention,

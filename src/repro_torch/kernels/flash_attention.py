@@ -1,12 +1,23 @@
-"""Flash attention forward and decode: the Hopper ports of
-``repro/kernels/flash_attention.py::flash_attention`` and ``flash_decode``.
+"""Flash attention: the Hopper ports of ``repro/kernels/flash_attention.py``
+``flash_attention``, ``flash_decode``, ``flash_attention_fwd_lse`` and
+``flash_attention_bwd``.
 
-``flash_attention`` launches ``csrc/flash_attention.cu`` and
-``flash_decode`` launches ``csrc/flash_decode.cu`` for CUDA tensors; CPU
-tensors take ``flash_attention_plain`` / ``flash_decode_plain``, which
-compute the same function in plain PyTorch.  Block geometry again comes
-from the Covenant tiler (``tiling.attention_blocks``): the QK^T GEMM's
+Each wrapper launches its ``csrc`` kernel for CUDA tensors
+(``flash_attention.cu`` holds the forward with and without the LSE output,
+``flash_attention_bwd.cu`` the backward's dq and dkv passes,
+``flash_decode.cu`` the decode); CPU tensors take the ``*_plain`` version
+beside it, which computes the same function in plain PyTorch.
+``FlashAttention`` is the autograd Function over the LSE forward and the
+backward.  Block geometry again comes from the Covenant tiler
+(``tiling.attention_blocks`` / ``attention_bwd_blocks``): the QK^T GEMM's
 Algorithm-1 tiling is the flash block structure.
+
+Window semantics follow the reference function by function:
+``flash_attention`` (like ``_fa_kernel``) reads an int window, even 0, as a
+window and None as none; ``flash_attention_fwd_lse`` and
+``flash_attention_bwd`` (like their kernels' ``if window:``) read 0 as none.
+``FlashAttention`` takes the forward's meaning and hands the same mask to
+both its kernels.
 """
 from __future__ import annotations
 
@@ -17,23 +28,51 @@ import torch
 
 from . import _build
 from .matmul import thread_tile
-from .tiling import flash_smem_bytes
+from .tiling import flash_bwd_smem_bytes, flash_smem_bytes
 
 NEG_INF = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
+def _visible(sq: int, sk: int, *, causal: bool, window: int | None,
+             q_offset: int, device) -> torch.Tensor:
+    """(Sq, Sk) mask of the kv positions each q row sees; ``window=None``
+    is no window."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = kpos < sk
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def _expand_kv(x: torch.Tensor, bh: int) -> torch.Tensor:
+    """k or v (BH / group, S, D) repeated to one row per q head."""
+    group = bh // x.shape[0]
+    return x if group == 1 else x.repeat_interleave(group, dim=0)
+
+
 def _masked_softmax_av(s: torch.Tensor, mask: torch.Tensor,
                        v: torch.Tensor) -> torch.Tensor:
     """softmax(s) @ v over visible entries; a row with none gives zeros
     (the kernels' ``l == 0`` guard).  ``s`` is f32 logits."""
+    return _masked_softmax_av_lse(s, mask, v)[0]
+
+
+def _masked_softmax_av_lse(s: torch.Tensor, mask: torch.Tensor,
+                           v: torch.Tensor
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(softmax(s) @ v, the rows' log-sum-exp m + log l); a row with no
+    visible entry gives zeros and lse = -1e30 (``l == 0`` read as 1)."""
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(-1, keepdim=True)
-    o = p @ v.float()
-    return o / torch.where(l == 0, torch.ones_like(l), l)
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    return (p @ v.float()) / safe, m + torch.log(safe)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,21 +83,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (BH, Sq, D); k, v: (BH / group, Sk, D)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
-    group = bh // k.shape[0]
-    if group != 1:
-        k = k.repeat_interleave(group, dim=0)
-        v = v.repeat_interleave(group, dim=0)
+    k, v = _expand_kv(k, bh), _expand_kv(v, bh)
     scale = scale if scale is not None else d ** -0.5
     q_offset = (sk - sq) if q_offset is None else q_offset
     s = (q.float() @ k.float().transpose(1, 2)) * scale
-    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    mask = kpos < sk
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window is not None:
-        mask = mask & (kpos > qpos - window)
+    mask = _visible(sq, sk, causal=causal, window=window, q_offset=q_offset,
+                    device=q.device)
     return _masked_softmax_av(s, mask, v).to(q.dtype)
+
+
+def _check_qkv(name: str, q, k, v) -> None:
+    bh, _, d = q.shape
+    bkv_rows, _, dk = k.shape
+    if dk != d or v.shape != k.shape or bh % bkv_rows:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def _check_cuda(name: str, q, *others) -> None:
+    """A CUDA launch takes same-device, same-dtype bf16 or f32 tensors."""
+    if q.device.type != "cuda" or any(t.device != q.device for t in others):
+        raise ValueError(f"{name}: unsupported devices "
+                         f"{[str(t.device) for t in (q, *others)]}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in others):
+        raise TypeError(f"{name}: unsupported dtypes "
+                        f"{[t.dtype for t in (q, *others)]}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -73,19 +122,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q and kv edges itself.  CPU tensors take ``flash_attention_plain``;
     CUDA tensors launch the kernel or raise."""
     bh, sq, d = q.shape
-    bkv_rows, sk, dk = k.shape
-    if dk != d or v.shape != k.shape or bh % bkv_rows:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    bkv_rows, sk, _ = k.shape
+    _check_qkv("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale, q_offset=q_offset)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention: unsupported devices {q.device}, "
-                         f"{k.device}, {v.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: unsupported dtypes {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
+    _check_cuda("flash_attention", q, k, v)
+    out, _ = _forward(q, k, v, causal=causal, window=window, scale=scale,
+                      block_q=block_q, block_kv=block_kv, q_offset=q_offset,
+                      with_lse=False)
+    flash_attention.launches += 1
+    return out
+
+
+def _forward(q, k, v, *, causal, window, scale, block_q, block_kv, q_offset,
+             with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch ``csrc/flash_attention.cu`` on checked CUDA tensors; with
+    ``with_lse`` through its LSE entry point.  ``window=None`` is no
+    window.  Returns (out, lse (BH, Sq, 1) f32 or None)."""
+    bh, sq, d = q.shape
+    bkv_rows, sk, _ = k.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     scale = scale if scale is not None else d ** -0.5
     q_offset = (sk - sq) if q_offset is None else q_offset
@@ -93,21 +149,234 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o_tile = thread_tile(block_q, d, max_tn=8)
     smem = flash_smem_bytes(block_q, block_kv, d)
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    symbol = "fwd_lse_" if with_lse else ""
     fn = _build.bind("flash_attention",
-                     f"covenant_flash_attention_{_DTYPES[q.dtype]}",
-                     [_P] * 4 + [_I] * 11 + [_F] + [_I] * 9 + [_P])
+                     f"covenant_flash_attention_{symbol}{_DTYPES[q.dtype]}",
+                     [_P] * (5 if with_lse else 4) + [_I] * 11 + [_F]
+                     + [_I] * 9 + [_P])
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if with_lse:
+        ptrs.append(lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 bh, sq, sk, d, bh // bkv_rows, block_q, block_kv, int(causal),
-                 int(window is not None), 0 if window is None else int(window),
-                 q_offset, float(scale), *s_tile, *o_tile, smem, stream)
+        err = fn(*ptrs, bh, sq, sk, d, bh // bkv_rows, block_q, block_kv,
+                 int(causal), int(window is not None),
+                 0 if window is None else int(window), q_offset, float(scale),
+                 *s_tile, *o_tile, smem, stream)
     _build.check("flash_attention", err)
-    flash_attention.launches += 1
-    return out
+    return out, lse
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# forward with LSE, backward (the training pair)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_fwd_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, causal: bool = True,
+                                  window: int | None = None,
+                                  scale: float | None = None,
+                                  q_offset: int | None = None
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The function ``flash_attention_fwd_lse`` computes, in plain PyTorch:
+    (out (BH, Sq, D), lse (BH, Sq, 1) f32).  ``window`` 0 or None is no
+    window, as in the reference's ``_fa_fwd_lse_kernel``."""
+    return _fwd_lse_plain(q, k, v, causal=causal, window=window or None,
+                          scale=scale, q_offset=q_offset)
+
+
+def _fwd_lse_plain(q, k, v, *, causal, window, scale, q_offset):
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    k, v = _expand_kv(k, bh), _expand_kv(v, bh)
+    scale = scale if scale is not None else d ** -0.5
+    q_offset = (sk - sq) if q_offset is None else q_offset
+    s = (q.float() @ k.float().transpose(1, 2)) * scale
+    mask = _visible(sq, sk, causal=causal, window=window, q_offset=q_offset,
+                    device=q.device)
+    out, lse = _masked_softmax_av_lse(s, mask, v)
+    return out.to(q.dtype), lse
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int | None = None,
+                            scale: float | None = None, block_q: int = 64,
+                            block_kv: int = 64, q_offset: int | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward that also returns the rows' log-sum-exp, the backward's
+    residual: (out (BH, Sq, D), lse (BH, Sq, 1) f32).  Shapes and
+    ``q_offset`` (default ``Sk - Sq``) as in ``flash_attention``; ``window``
+    0 or None is no window, as in the reference.  A fully masked row gives
+    zeros and lse = -1e30.  CPU tensors take
+    ``flash_attention_fwd_lse_plain``; CUDA tensors launch the kernel or
+    raise."""
+    return _fwd_lse(q, k, v, causal=causal, window=window or None,
+                    scale=scale, block_q=block_q, block_kv=block_kv,
+                    q_offset=q_offset)
+
+
+def _fwd_lse(q, k, v, *, causal, window, scale, block_q, block_kv, q_offset):
+    """``flash_attention_fwd_lse`` with ``window=None`` as no window and an
+    int, even 0, as a window (``FlashAttention`` takes this form)."""
+    _check_qkv("flash_attention_fwd_lse", q, k, v)
+    if q.device.type == "cpu":
+        return _fwd_lse_plain(q, k, v, causal=causal, window=window,
+                              scale=scale, q_offset=q_offset)
+    _check_cuda("flash_attention_fwd_lse", q, k, v)
+    out = _forward(q, k, v, causal=causal, window=window, scale=scale,
+                   block_q=block_q, block_kv=block_kv, q_offset=q_offset,
+                   with_lse=True)
+    flash_attention_fwd_lse.launches += 1
+    return out
+
+
+flash_attention_fwd_lse.launches = 0
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True, window: int | None = None,
+                              scale: float | None = None, q_offset: int = 0
+                              ) -> tuple[torch.Tensor, ...]:
+    """The function ``flash_attention_bwd`` computes, in plain PyTorch: the
+    flash-recompute formula from ``lse`` and ``delta = rowsum(dout * out)``
+    (no autograd).  ``window`` 0 or None is no window."""
+    return _bwd_plain(q, k, v, out, lse, dout, causal=causal,
+                      window=window or None, scale=scale, q_offset=q_offset)
+
+
+def _bwd_plain(q, k, v, out, lse, dout, *, causal, window, scale, q_offset):
+    bh, sq, d = q.shape
+    bkv_rows, sk, _ = k.shape
+    group = bh // bkv_rows
+    scale = scale if scale is not None else d ** -0.5
+    kf, vf = _expand_kv(k, bh).float(), _expand_kv(v, bh).float()
+    qf, dof = q.float(), dout.float()
+    mask = _visible(sq, sk, causal=causal, window=window, q_offset=q_offset,
+                    device=q.device)
+    s = (qf @ kf.transpose(1, 2)) * scale
+    # select with the mask: exp(s - lse) overflows on a fully masked row
+    p = torch.where(mask, torch.exp(s - lse.reshape(bh, sq, 1).float()),
+                    torch.zeros_like(s))
+    delta = (dof * out.float()).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(1, 2) - delta) * scale
+    dq = ds @ kf
+    dk = (ds.transpose(1, 2) @ qf).reshape(bkv_rows, group, sk, d).sum(1)
+    dv = (p.transpose(1, 2) @ dof).reshape(bkv_rows, group, sk, d).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: int | None = None,
+                        scale: float | None = None, block_q: int = 64,
+                        block_kv: int = 64, q_offset: int = 0
+                        ) -> tuple[torch.Tensor, ...]:
+    """dq, dk, dv of the flash forward.  q, out, dout: (BH, Sq, D); k, v:
+    (BH / group, Sk, D), q head ``h`` reading kv head ``h // group``; lse:
+    (BH, Sq, 1) f32 from ``flash_attention_fwd_lse``.  dk and dv come out
+    summed over the group, all three in the input dtype.  ``q_offset``
+    defaults to 0 and ``window`` 0 or None is no window, as in the
+    reference; unlike it, ragged q and kv edges need no padding (nor its
+    ``seq_k``).  CPU tensors take ``flash_attention_bwd_plain``; CUDA
+    tensors launch the two kernels (dq, then dk/dv) or raise."""
+    return _bwd(q, k, v, out, lse, dout, causal=causal, window=window or None,
+                scale=scale, block_q=block_q, block_kv=block_kv,
+                q_offset=q_offset)
+
+
+def _bwd(q, k, v, out, lse, dout, *, causal, window, scale, block_q,
+         block_kv, q_offset):
+    """``flash_attention_bwd`` with ``window=None`` as no window and an
+    int, even 0, as a window (``FlashAttention`` takes this form)."""
+    _check_qkv("flash_attention_bwd", q, k, v)
+    bh, sq, d = q.shape
+    bkv_rows, sk, _ = k.shape
+    if out.shape != q.shape or dout.shape != q.shape \
+            or lse.numel() != bh * sq:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, out "
+                         f"{tuple(out.shape)}, dout {tuple(dout.shape)}, lse "
+                         f"{tuple(lse.shape)}")
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, out, lse, dout, causal=causal,
+                          window=window, scale=scale, q_offset=q_offset)
+    _check_cuda("flash_attention_bwd", q, k, v, out, dout)
+    if lse.device != q.device or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: lse must be f32 on "
+                        f"{q.device}, got {lse.dtype} on {lse.device}")
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    lse = lse.reshape(bh, sq).contiguous()
+    # the reference computes delta outside its kernels too (:270)
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    scale = scale if scale is not None else d ** -0.5
+    s_tile = thread_tile(block_q, block_kv, max_tn=8, max_tm=4)
+    dq_tile = thread_tile(block_q, d, max_tn=8, max_tm=4)
+    dkv_tile = thread_tile(block_kv, d, max_tn=8, max_tm=4)
+    smem = flash_bwd_smem_bytes(block_q, block_kv, d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    common = (sq, sk, d, bh // bkv_rows, block_q, block_kv, int(causal),
+              int(window is not None), 0 if window is None else int(window),
+              q_offset, float(scale), *s_tile)
+    args = [_I] * 10 + [_F] + [_I] * 9 + [_P]
+    dt = _DTYPES[q.dtype]
+    dq_fn = _build.bind("flash_attention_bwd",
+                        f"covenant_flash_attention_bwd_dq_{dt}",
+                        [_P] * 7 + [_I] + args)
+    dkv_fn = _build.bind("flash_attention_bwd",
+                         f"covenant_flash_attention_bwd_dkv_{dt}",
+                         [_P] * 8 + [_I] + args)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = dq_fn(*inputs, dq.data_ptr(), bh, *common, *dq_tile, smem,
+                    stream)
+        _build.check("flash_attention_bwd", err)
+        err = dkv_fn(*inputs, dk.data_ptr(), dv.data_ptr(), bkv_rows,
+                     *common, *dkv_tile, smem, stream)
+    _build.check("flash_attention_bwd", err)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention that carries gradients: the forward runs
+    ``flash_attention_fwd_lse`` and saves q, k, v, out and the (BH, Sq, 1)
+    lse, never the (Sq, Sk) probabilities; the backward runs
+    ``flash_attention_bwd`` with the forward's mask and ``q_offset``.
+
+    ``apply(q, k, v, causal, window, scale, blocks, bwd_blocks, q_offset)``
+    with q (BH, Sq, D), k/v (BH / group, Sk, D); ``window`` as in
+    ``flash_attention`` (None is none, an int, even 0, is a window)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, blocks, bwd_blocks,
+                q_offset):
+        out, lse = _fwd_lse(q, k, v, causal=causal, window=window,
+                            scale=scale, block_q=blocks[0],
+                            block_kv=blocks[1], q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        block_q=bwd_blocks[0], block_kv=bwd_blocks[1],
+                        q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, out, lse, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -173,5 +442,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_decode.launches = 0
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_decode",
-           "flash_decode_plain"]
+__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_plain", "flash_attention_fwd_lse",
+           "flash_attention_fwd_lse_plain", "flash_attention_plain",
+           "flash_decode", "flash_decode_plain"]

@@ -24,7 +24,7 @@ THREADS = 256
 
 
 @functools.lru_cache(maxsize=None)
-def thread_tile(rows: int, cols: int, max_tn: int = 16
+def thread_tile(rows: int, cols: int, max_tn: int = 16, max_tm: int = 8
                 ) -> tuple[int, int, int, int]:
     """(tm, tn, txc, tyc): a ``rows x cols`` block tile over at most 256
     threads, ``tyc x txc`` of them, each holding a ``tm x tn`` register
@@ -32,7 +32,7 @@ def thread_tile(rows: int, cols: int, max_tn: int = 16
     Picks the fewest outputs per thread, then the fewest shared-memory
     reads per step (tm + tn), then the widest rows of threads."""
     best, best_key = None, None
-    for tm in (1, 2, 4, 8):
+    for tm in (t for t in (1, 2, 4, 8) if t <= max_tm):
         tyc = math.ceil(rows / tm)
         if tyc > THREADS:
             continue
@@ -45,7 +45,7 @@ def thread_tile(rows: int, cols: int, max_tn: int = 16
             best, best_key = (tm, tn, txc, tyc), key
     if best is None:
         raise ValueError(f"block tile {rows}x{cols} does not fit {THREADS} "
-                         f"threads of at most 8x{max_tn} outputs")
+                         f"threads of at most {max_tm}x{max_tn} outputs")
     return best
 
 

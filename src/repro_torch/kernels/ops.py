@@ -12,9 +12,10 @@ import torch
 import torch.nn.functional as F
 
 from . import ref as _ref
+from .flash_attention import FlashAttention
 from .flash_attention import flash_attention as _fa, flash_decode as _fd
 from .matmul import matmul as _mm
-from .tiling import attention_blocks, gemm_blocks
+from .tiling import attention_blocks, attention_bwd_blocks, gemm_blocks
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -55,7 +56,11 @@ def covenant_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The kernel reads kv head ``h // (Hq // Hkv)`` for q head ``h`` rather
     than repeating k and v, and masks the ragged q edge itself rather than
-    padding q; ``q_offset = Sk - Sq`` as in the reference."""
+    padding q; ``q_offset = Sk - Sq`` as in the reference.  When autograd
+    needs a gradient of q, k or v, the call goes through ``FlashAttention``
+    (the LSE forward, then the flash backward, with the tiler's backward
+    blocks); otherwise through the forward-only kernel.  Both compute the
+    same output, with the same masks."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if blocks is None:
@@ -63,9 +68,16 @@ def covenant_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         bq, bkv = blocks
     bq = min(bq, sq)
-    out = _fa(q.reshape(b * hq, sq, d), k.reshape(b * hkv, sk, d),
-              v.reshape(b * hkv, sk, d), causal=causal, window=window,
-              scale=scale, block_q=bq, block_kv=bkv, q_offset=sk - sq)
+    qf = q.reshape(b * hq, sq, d)
+    kf, vf = k.reshape(b * hkv, sk, d), v.reshape(b * hkv, sk, d)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        bwd_blocks = attention_bwd_blocks(sq, sk, d, heads=b * hq)
+        out = FlashAttention.apply(qf, kf, vf, causal, window, scale,
+                                   (bq, bkv), bwd_blocks, sk - sq)
+    else:
+        out = _fa(qf, kf, vf, causal=causal, window=window, scale=scale,
+                  block_q=bq, block_kv=bkv, q_offset=sk - sq)
     return out.reshape(b, hq, sq, d)
 
 

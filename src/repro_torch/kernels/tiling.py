@@ -17,8 +17,10 @@ Hopper's:
 
 ``attention_blocks`` sizes the flash kernel's (q, kv) tiles through the
 equivalent QK^T GEMM, then bounds the flash working set by shared memory;
-``decode_block_kv`` is its kv block for the decode kernel, whose split kv
-walk is what fills the card when batch x kv heads is small.
+``attention_bwd_blocks`` shrinks that tiling to the backward kernels'
+larger working set; ``decode_block_kv`` is its kv block for the decode
+kernel, whose split kv walk is what fills the card when batch x kv heads
+is small.
 """
 from __future__ import annotations
 
@@ -154,6 +156,38 @@ def attention_blocks(seq_q: int, seq_k: int, head_dim: int,
     return bq, bkv
 
 
+def flash_bwd_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
+    """Shared memory of one flash-backward block, in the layout of
+    ``csrc/flash_attention_bwd.cu`` (both passes): f32 q and dout
+    (bq, d+1) tiles, k and v (bkv, d+1) tiles, the (bq, bkv+1) P and dS
+    tiles and two f32 row stats (lse, delta)."""
+    d = head_dim
+    floats = (2 * block_q * (d + 1) + 2 * block_kv * (d + 1)
+              + 2 * block_q * (block_kv + 1) + 2 * block_q)
+    return 4 * floats
+
+
+def attention_bwd_blocks(seq_q: int, seq_k: int, head_dim: int,
+                         heads: int = 1) -> tuple[int, int]:
+    """(block_q, block_kv) for the flash backward: the forward's Covenant
+    tiling (``attention_blocks``), shrunk until the backward's working set
+    fits: ``flash_bwd_smem_bytes`` in shared memory, and in the register
+    budget the dk and dv (bkv, d) f32 accumulators, or dq's (bq, d) held to
+    the same half, beside the (bq, bkv) scores tile."""
+    bq, bkv = attention_blocks(seq_q, seq_k, head_dim, heads=heads)
+    smem_b, rf_b = _budgets()
+    while (flash_bwd_smem_bytes(bq, bkv, head_dim) > smem_b
+           or 2 * max(bq, bkv) * head_dim * 4 > rf_b
+           or 2 * bq * bkv * 4 > rf_b):
+        if bkv > N_UNIT and bkv >= bq:
+            bkv = _round_up(bkv // 2, N_UNIT)
+        elif bq > N_UNIT:
+            bq = _round_up(bq // 2, N_UNIT)
+        else:
+            break
+    return bq, bkv
+
+
 def decode_block_kv(rows: int, seq_k: int, head_dim: int,
                     group: int) -> int:
     """kv split length for decode: the QK^T tiling of the ``rows`` (batch x
@@ -164,4 +198,5 @@ def decode_block_kv(rows: int, seq_k: int, head_dim: int,
 
 
 __all__ = ["K_UNIT", "N_UNIT", "WARPGROUP_M", "attention_blocks",
-           "decode_block_kv", "flash_smem_bytes", "gemm_blocks", "gemm_fits"]
+           "attention_bwd_blocks", "decode_block_kv", "flash_bwd_smem_bytes",
+           "flash_smem_bytes", "gemm_blocks", "gemm_fits"]

@@ -1,5 +1,6 @@
-"""Launch layer: the serving driver (``launch.serve``, run as a module) and
-the block-GEMM inventory (``launch.layers``)."""
+"""Launch layer: the serving and training drivers (``launch.serve`` and
+``launch.train``, run as modules) and the block-GEMM inventory
+(``launch.layers``)."""
 from . import layers
 
 __all__ = ["layers"]

@@ -1,0 +1,113 @@
+"""Training driver: ``python -m repro_torch.launch.train --arch qwen3-0.6b``.
+
+The counterpart of ``repro/launch/train.py``: config -> model -> train
+step with microbatch accumulation -> synthetic data -> fault-tolerant loop
+(checkpoint/restart, NaN rollback, straggler monitor).  Runs on
+``--device cuda`` unless asked otherwise; ``--attn kernel`` sends attention
+forward and backward through the Hopper kernels (``--attn plain``: plain
+PyTorch under autograd).  ``--smoke`` takes the reduced config, which runs
+on the CPU.  Before training it prints ``launch.layers.layer_report`` at
+``global_batch x seq_len`` tokens (the model's block GEMMs through the
+Covenant-tiled GEMM kernel; ``--accel-target none`` skips it).  The
+reference's ``--multi-pod`` and ``--model-axis`` wait for the distribution
+slice.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import configs
+from ..data import SyntheticLM
+from ..kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                       flash_attention_fwd_lse, flash_decode)
+from ..kernels.matmul import matmul
+from ..models import get_model
+from ..optim import adamw, cosine_schedule, int8_compressed
+from ..runtime import make_train_step, train_loop
+from .layers import layer_report
+
+
+def kernel_launches() -> dict[str, int]:
+    """Every kernel wrapper's launch count."""
+    return {"matmul": matmul.launches,
+            "flash_attention": flash_attention.launches,
+            "flash_attention_fwd_lse": flash_attention_fwd_lse.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "flash_decode": flash_decode.launches}
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list(configs.ARCHS))
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--ckpt-dir", default="checkpoints")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--accel-target", choices=("h100", "none"),
+                    default="h100",
+                    help="covenant of the block-GEMM report ('none' skips "
+                         "it)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--attn", choices=("kernel", "plain"), default="kernel")
+    args = ap.parse_args(argv)
+
+    cfg = configs.get_config(args.arch, smoke=args.smoke)
+    tokens = args.global_batch * args.seq_len
+    before = kernel_launches()
+    if args.accel_target != "none":
+        print(layer_report(cfg, tokens=tokens, device=args.device,
+                           seed=args.seed))
+    model = get_model(cfg, device=args.device, attn=args.attn)
+    print(f"[train] {cfg.name} on {args.device} (attn={args.attn}), "
+          f"batch {args.global_batch} x {args.seq_len} in "
+          f"{args.microbatches} microbatches")
+
+    opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps))
+    if args.compress_grads:
+        opt = int8_compressed(opt, cfg)
+    params = model.init_params(args.seed)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(model.loss_fn, opt,
+                              microbatches=args.microbatches)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,
+                       global_batch=args.global_batch, seed=args.seed)
+
+    t0 = time.perf_counter()
+    params, opt_state, report = train_loop(
+        step_fn, params, opt_state, data.batch, cfg=cfg, steps=args.steps,
+        ckpt_dir=f"{args.ckpt_dir}/{cfg.name}", ckpt_every=args.ckpt_every)
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in kernel_launches().items()}
+    stats = {"report": report, "seconds": seconds, "launches": launches}
+    steady = report.step_seconds[1:] or report.step_seconds
+    if steady:
+        stats["ms_per_step"] = 1e3 * sum(steady) / len(steady)
+        stats["tokens_per_s"] = tokens / sum(steady) * len(steady)
+        print(f"[train] {stats['ms_per_step']:.1f} ms per step after the "
+              f"first, {stats['tokens_per_s']:.0f} train tokens/s on "
+              f"{args.device}")
+    print("[train] kernel launches: " +
+          " ".join(f"{k}={v}" for k, v in launches.items()))
+    if report.losses:
+        print(f"[train] done: {report.steps_run} steps, "
+              f"loss {report.losses[0]:.3f} -> {report.losses[-1]:.3f}, "
+              f"{report.rollbacks} rollbacks, "
+              f"{len(report.slow_steps)} straggler events")
+    return stats
+
+
+if __name__ == "__main__":
+    main()

@@ -3,13 +3,16 @@
 ``get_model(cfg)`` returns the uniform ``Model`` API the server uses:
 
 * ``init_params(seed)``                     -> parameter dict
+* ``loss_fn(params, batch)``                -> scalar loss (train step core)
 * ``init_cache(batch, max_len)``            -> serving cache
 * ``prefill(params, batch, cache)``         -> (last logits (B,V), cache)
 * ``decode_step(params, tokens, cache)``    -> (logits (B,V), cache)
 
-So far it holds the ``dense`` family; ``loss_fn`` comes with the training
-slice and ``extra_inputs`` with the encoder-decoder and VLM families.  Everything runs on ``device`` (``cuda`` unless the caller asks for
-``cpu``); ``attn`` picks the attention path (``models.attention``).
+So far it holds the ``dense`` family; ``extra_inputs`` comes with the
+encoder-decoder and VLM families.  Everything runs on ``device`` (``cuda``
+unless the caller asks for ``cpu``); ``loss_fn`` takes a batch of numpy
+arrays or tensors and moves it there.  ``attn`` picks the attention path
+(``models.attention``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ class Model:
     cfg: ArchConfig
     device: torch.device
     init_params: Callable[[int], dict]
+    loss_fn: Callable[[dict, dict], torch.Tensor]
     init_cache: Callable[[int, int], dict]
     prefill: Callable[[dict, dict, dict], tuple]
     decode_step: Callable[[dict, Any, dict], tuple]
@@ -41,11 +45,16 @@ def get_model(cfg: ArchConfig, *, device: str | torch.device = "cuda",
         gen.manual_seed(seed)
         return transformer.init_params(cfg, gen)
 
+    def on_device(batch: dict) -> dict:
+        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
     if cfg.family == "dense":
         return Model(
             cfg,
             device,
             init_params=init_params,
+            loss_fn=lambda p, b: transformer.loss_fn(cfg, p, on_device(b),
+                                                     attn=attn),
             init_cache=lambda bs, ml: transformer.init_cache(
                 cfg, bs, ml, device=device),
             prefill=lambda p, b, c: transformer.prefill(

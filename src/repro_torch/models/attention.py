@@ -8,11 +8,15 @@ The counterpart of ``repro/models/attention.py``:
   grouped-GQA form.
 
 The reference's docstring says the models dispatch to the Pallas kernels
-on a TPU, but its model code never calls them.  The port does what that
-docstring describes: ``prefill_attention`` and ``decode_attention_for``
-send the models through ``repro_torch.kernels.ops`` when ``attn="kernel"``
-and through the plain functions here when ``attn="plain"``.  Both compute
-the same function.
+on a TPU, but its model code never calls them, in serving or in training.
+The port does what that docstring describes: ``prefill_attention`` (the
+full-sequence attention of training and prefill) and
+``decode_attention_for`` send the models through
+``repro_torch.kernels.ops`` when ``attn="kernel"`` and through the plain
+functions here when ``attn="plain"``.  Both compute the same function.  In
+training, ``ops.covenant_attention`` takes the autograd Function over the
+LSE forward and the flash backward kernels; the plain path runs
+``dense_attention`` under plain autograd.
 
 Window semantics differ between the layers: the models pass ``window=0``
 to mean no window, while ``ops`` (like the reference's kernels and
@@ -82,8 +86,9 @@ def _check_impl(attn: str) -> None:
 
 def prefill_attention(q, k, v, *, window: int = 0,
                       attn: str = "kernel") -> torch.Tensor:
-    """Causal self attention over a prompt; q (B,Hq,S,D), k/v (B,Hkv,S,D).
-    ``window`` is the model's (0 = none)."""
+    """Causal self attention over a whole sequence (training forward or
+    prompt); q (B,Hq,S,D), k/v (B,Hkv,S,D).  ``window`` is the model's
+    (0 = none).  Gradients flow through either path."""
     _check_impl(attn)
     if attn == "plain":
         return dense_attention(q, k, v, causal=True, window=window)

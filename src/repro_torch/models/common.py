@@ -176,7 +176,21 @@ def logits_from_hidden(cfg: ArchConfig, p: dict, x: torch.Tensor
     return logits
 
 
-__all__ = ["apply_mlp", "apply_norm", "apply_rope", "cdt", "dense_init",
-           "embed_init", "embed_tokens", "init_embed", "init_mlp",
-           "init_norm", "logits_from_hidden", "pdt", "rms_head_norm",
-           "rope_frequencies"]
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE over weighted tokens; logits (B,S,V) f32,
+    targets (B,S).  The reference picks the target logit with a masked sum
+    to keep a vocab-sharded tensor sharded; unsharded, a gather picks the
+    same value."""
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    ll = picked - lse
+    if weights is None:
+        weights = torch.ones_like(ll)
+    return -(ll * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+
+
+__all__ = ["apply_mlp", "apply_norm", "apply_rope", "cdt", "cross_entropy",
+           "dense_init", "embed_init", "embed_tokens", "init_embed",
+           "init_mlp", "init_norm", "logits_from_hidden", "pdt",
+           "rms_head_norm", "rope_frequencies"]

@@ -1,25 +1,33 @@
 """Dense decoder-only transformer LM.
 
 The counterpart of ``repro/models/transformer.py`` for the dense path
-(qwen3: qk-norm, GQA, tied embeddings).  The reference stacks each layer's
-parameters by group and scans over groups; here ``params["layers"]`` is a
-list with one dict per layer and the scan is a Python loop.  The KV cache
+(qwen3: qk-norm, GQA, tied embeddings): training (``forward``,
+``loss_fn``) and serving (``prefill``, ``decode_step``).  The reference
+stacks each layer's parameters by group and scans over groups; here
+``params["layers"]`` is a list with one dict per layer and the scan is a
+Python loop.  The KV cache
 is a list with one ``{"k", "v"}`` pair of (B, Hkv, S, D) tensors per layer,
 updated in place by ``prefill`` and ``decode_step``.
 
-``attn`` picks the attention path: ``"kernel"`` sends prefill and decode
-attention through ``repro_torch.kernels.ops`` (the Hopper kernels on a
-CUDA tensor, their plain versions on a CPU one), ``"plain"`` through the
-plain functions of ``models.attention``.
+``attn`` picks the attention path: ``"kernel"`` sends prefill, training and
+decode attention through ``repro_torch.kernels.ops`` (the Hopper kernels
+on a CUDA tensor, their plain versions on a CPU one; training attention
+through the autograd Function over the LSE forward and the backward
+kernels), ``"plain"`` through the plain functions of ``models.attention``
+under plain autograd.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_lib
-from .common import (apply_mlp, apply_norm, apply_rope, cdt, dense_init,
-                     embed_tokens, init_embed, init_mlp, init_norm,
-                     logits_from_hidden, pdt, rms_head_norm, rope_frequencies)
+from .common import (apply_mlp, apply_norm, apply_rope, cdt, cross_entropy,
+                     dense_init, embed_tokens, init_embed, init_mlp,
+                     init_norm, logits_from_hidden, pdt, rms_head_norm,
+                     rope_frequencies)
 from .config import ArchConfig
 
 # ---------------------------------------------------------------------------
@@ -145,13 +153,27 @@ def layer_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *, local: bool,
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             attn: str = "kernel") -> torch.Tensor:
-    """Returns final hidden states (B,S,D)."""
+    """Returns final hidden states (B,S,D).  With ``cfg.remat`` and grad
+    mode on, each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant): the backward recomputes its activations, as the
+    reference's ``jax.checkpoint`` does per layer group."""
     x = embed_tokens(cfg, params["embed"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for lp, local in zip(params["layers"], layer_is_local(cfg)):
-        x = layer_apply(cfg, lp, x, local=local, positions=positions,
-                        attn=attn)
+        fn = functools.partial(layer_apply, cfg, lp, local=local,
+                               positions=positions, attn=attn)
+        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
     return apply_norm(cfg, params["ln_f"], x)
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
+            attn: str = "kernel") -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch`` (tokens, targets and
+    optional weights, (B,S) tensors)."""
+    h = forward(cfg, params, batch["tokens"], attn=attn)
+    logits = logits_from_hidden(cfg, params["embed"], h)
+    return cross_entropy(logits, batch["targets"], batch.get("weights"))
 
 
 # ---------------------------------------------------------------------------
@@ -254,4 +276,5 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 
 
 __all__ = ["decode_step", "forward", "init_cache", "init_params",
-           "layer_apply", "layer_is_local", "layer_pattern", "prefill"]
+           "layer_apply", "layer_is_local", "layer_pattern", "loss_fn",
+           "prefill"]

@@ -154,3 +154,160 @@ def test_flash_decode_full_width_on_card(cuda, block_kv):
     got = flash_decode(q, k, v, kv_len, block_kv=block_kv)
     want = flash_decode_plain(q, k, v, kv_len)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# the training pair: the LSE forward and the backward, and the Function
+# ---------------------------------------------------------------------------
+
+# kernel against plain version: bf16 at the attention bound of
+# tests/test_kernels.py (2e-2), f32 at 2e-3; lse is an f32 log-sum-exp of
+# the same inputs summed in another order, values below 10: 1e-3
+TRAIN_CASES = [
+    dict(b=2, hq=4, hkv=4, sq=64, sk=64, d=32, causal=True, win=None),
+    dict(b=1, hq=8, hkv=2, sq=100, sk=100, d=16, causal=True, win=None),
+    dict(b=2, hq=4, hkv=2, sq=64, sk=64, d=32, causal=True, win=16),
+    dict(b=1, hq=4, hkv=4, sq=32, sk=96, d=32, causal=True, win=None),
+    dict(b=1, hq=2, hkv=2, sq=48, sk=48, d=16, causal=False, win=None),
+    dict(b=1, hq=4, hkv=1, sq=40, sk=40, d=64, causal=True, win=None),
+    dict(b=1, hq=4, hkv=2, sq=70, sk=130, d=128, causal=False, win=7),
+]
+
+
+def _train_inputs(dev, case, dtype):
+    b, hq, hkv = case["b"], case["hq"], case["hkv"]
+    q = randn(dev, b * hq, case["sq"], case["d"], dtype=dtype)
+    k = randn(dev, b * hkv, case["sk"], case["d"], dtype=dtype)
+    v = randn(dev, b * hkv, case["sk"], case["d"], dtype=dtype)
+    do = randn(dev, b * hq, case["sq"], case["d"], dtype=dtype)
+    return q, k, v, do
+
+
+def _blocks(case):
+    from repro_torch.kernels.tiling import attention_bwd_blocks
+
+    return attention_bwd_blocks(case["sq"], case["sk"], case["d"],
+                                heads=case["b"] * case["hq"])
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_flash_fwd_lse_on_card(cuda, case):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fwd_lse, flash_attention_fwd_lse_plain)
+
+    q, k, v, _ = _train_inputs(cuda, case, torch.float32)
+    off = case["sk"] - case["sq"]
+    before = flash_attention_fwd_lse.launches
+    out, lse = flash_attention_fwd_lse(q, k, v, causal=case["causal"],
+                                       window=case["win"], block_q=32,
+                                       block_kv=48, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention_fwd_lse.launches == before + 1
+    want, want_lse = flash_attention_fwd_lse_plain(
+        q, k, v, causal=case["causal"], window=case["win"], q_offset=off)
+    torch.testing.assert_close(out, want, atol=2e-3, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    # the serve path's forward-only kernel gives the same output
+    fwd = flash_attention(q, k, v, causal=case["causal"],
+                          window=case["win"] or None, block_q=32,
+                          block_kv=48, q_offset=off)
+    torch.testing.assert_close(out, fwd, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_on_card(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd_lse_plain)
+
+    q, k, v, do = _train_inputs(cuda, case, dtype)
+    off = case["sk"] - case["sq"]
+    out, lse = flash_attention_fwd_lse_plain(
+        q, k, v, causal=case["causal"], window=case["win"], q_offset=off)
+    bq, bkv = _blocks(case)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=case["causal"],
+                              window=case["win"], block_q=bq, block_kv=bkv,
+                              q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                     causal=case["causal"],
+                                     window=case["win"], q_offset=off)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=0)
+
+
+def test_flash_training_pair_full_width_bf16_on_card(cuda):
+    """qwen3-0.6b's training shape, microbatch 4 x 512, tiler blocks."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd_lse, flash_attention_fwd_lse_plain)
+    from repro_torch.kernels.tiling import attention_blocks
+
+    case = dict(b=4, hq=16, hkv=8, sq=512, sk=512, d=128)
+    q, k, v, do = _train_inputs(cuda, case, torch.bfloat16)
+    bq, bkv = attention_blocks(512, 512, 128, heads=64)
+    out, lse = flash_attention_fwd_lse(q, k, v, block_q=bq, block_kv=bkv)
+    want, want_lse = flash_attention_fwd_lse_plain(q, k, v)
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    got = flash_attention_bwd(q, k, v, want, want_lse, do,
+                              block_q=_blocks(case)[0],
+                              block_kv=_blocks(case)[1])
+    ref = flash_attention_bwd_plain(q, k, v, want, want_lse, do)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_kernel_attention_carries_grads_on_card(cuda, window):
+    """``requires_grad`` inputs on the card go through the Function: each
+    gets a gradient, equal to the plain path's (f32, 2e-3)."""
+    from repro_torch.models.attention import dense_attention
+
+    q0 = randn(cuda, 2, 8, 96, 64)
+    k0, v0 = randn(cuda, 2, 4, 96, 64), randn(cuda, 2, 4, 96, 64)
+    do = randn(cuda, 2, 8, 96, 64)
+    got, want = [], []
+    for fn, sink in ((lambda *t: ops.covenant_attention(
+            *t, causal=True, window=window), got),
+                     (lambda *t: dense_attention(*t, causal=True,
+                                                 window=window or 0), want)):
+        leaves = [t.clone().requires_grad_(True) for t in (q0, k0, v0)]
+        fn(*leaves).backward(do)
+        sink.extend(t.grad for t in leaves)
+    for a, b in zip(got, want):
+        assert a is not None
+        torch.testing.assert_close(a, b, atol=2e-3, rtol=0)
+
+
+def test_model_kernel_path_grads_on_card(cuda):
+    """``backward()`` through ``transformer.forward(attn="kernel")`` on the
+    card gives wq, wk, wv, q_norm and k_norm gradients equal to the plain
+    path's (SMOKE qwen3 in f32, the model bound of
+    ``tests/test_torch_models.py``: atol 1e-4, rtol 1e-4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, transformer
+
+    cfg = get_config("qwen3-0.6b", smoke=True)
+    params = get_model(cfg, device=cuda).init_params(0)
+    tokens = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 48))).to(cuda)
+    grads = {}
+    for attn in ("kernel", "plain"):
+        attn_p = {n: t.clone().requires_grad_(True)
+                  for n, t in params["layers"][0]["attn"].items()}
+        layers = [{**params["layers"][0], "attn": attn_p}] + \
+            params["layers"][1:]
+        h = transformer.forward(cfg, {**params, "layers": layers}, tokens,
+                                attn=attn)
+        h.square().mean().backward()
+        grads[attn] = {n: t.grad for n, t in attn_p.items()}
+    for name in ("wq", "wk", "wv", "q_norm", "k_norm"):
+        assert grads["kernel"][name] is not None, name
+        torch.testing.assert_close(grads["kernel"][name],
+                                   grads["plain"][name], atol=1e-4,
+                                   rtol=1e-4)

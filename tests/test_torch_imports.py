@@ -36,7 +36,12 @@ def test_importing_every_module_leaves_jax_and_repro_out():
     assert res["leaked"] == []
     expected = {"repro_torch.kernels.ops", "repro_torch.launch.serve",
                 "repro_torch.models.transformer", "repro_torch.convert",
-                "repro_torch.core.scheduler", "repro_torch.targets"}
+                "repro_torch.core.scheduler", "repro_torch.targets",
+                "repro_torch.tree", "repro_torch.data.pipeline",
+                "repro_torch.optim.adamw", "repro_torch.optim.compression",
+                "repro_torch.runtime.trainstep",
+                "repro_torch.runtime.fault_tolerance",
+                "repro_torch.checkpoint.store", "repro_torch.launch.train"}
     assert expected <= set(res["modules"])
 
 

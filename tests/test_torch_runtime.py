@@ -1,0 +1,449 @@
+"""The port's training runtime on the CPU, against the JAX package.
+
+Data, optimizer, gradient accumulation, checkpoints and the fault-tolerant
+loop of ``repro_torch`` on the SMOKE qwen3 config, held against
+``repro.data``, ``repro.optim``, ``repro.runtime`` and ``repro.checkpoint``
+on the same inputs (parameters made by the reference and carried across
+with ``params_from_jax``).  The batches must be bit-identical; an
+optimizer update on the same grads agrees within f32 rounding (atol 1e-6
+on params that move by ~1e-3 a step); losses and accumulated grads within
+the f32 model bound of ``tests/test_torch_models.py``; the loop tests are
+the port's versions of ``tests/test_runtime.py``'s.
+"""
+import os
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import checkpoint as ref_ckpt
+from repro.configs import get_config as ref_get_config
+from repro.data import SyntheticLM as RefSyntheticLM
+from repro.models import get_model as ref_get_model
+from repro.optim import adamw as ref_adamw
+from repro.optim import cosine_schedule as ref_cosine
+from repro.optim import int8_compressed as ref_int8
+from repro.optim import linear_schedule as ref_linear
+from repro.optim.compression import compress as ref_compress
+from repro.runtime import make_train_step as ref_make_train_step
+
+from repro_torch import checkpoint as ckpt
+from repro_torch.configs import get_config
+from repro_torch.convert import (from_reference_layout, params_from_jax,
+                                 params_to_jax, to_reference_layout)
+from repro_torch.data import SyntheticLM
+from repro_torch.launch import train as train_cli
+from repro_torch.models import get_model
+from repro_torch.optim import (adamw, clip_by_global_norm, cosine_schedule,
+                               global_norm, int8_compressed, linear_schedule)
+from repro_torch.optim.compression import compress, decompress
+from repro_torch.runtime import (make_loss_with_accum, make_train_step,
+                                 train_loop)
+from repro_torch.runtime.fault_tolerance import (InjectedFailure,
+                                                 StragglerMonitor)
+from repro_torch.tree import tree_map, tree_paths
+
+ARCH = "qwen3-0.6b"
+STEP_TOL = dict(atol=1e-6, rtol=1e-5)
+MODEL_TOL = dict(atol=1e-4, rtol=1e-4)    # tests/test_torch_models.py
+
+
+def jax_paths(tree) -> dict:
+    """{key path: numpy leaf} with the port's path convention."""
+    return {tuple(getattr(k, "key", getattr(k, "idx", None)) for k in path):
+            np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def assert_tree_close(cfg, params, jtree, **tol):
+    want = jax_paths(jtree)
+    got = list(tree_paths(to_reference_layout(cfg, params)))
+    assert {p for p, _ in got} == set(want)
+    for path, leaf in got:
+        np.testing.assert_allclose(leaf.float().numpy(), want[path],
+                                   err_msg=str(path), **tol)
+
+
+# ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,step,n_hosts,host_id",
+                         [(0, 0, 1, 0), (3, 5, 1, 0), (3, 2, 2, 1),
+                          (7, 11, 4, 2)])
+def test_batches_equal_reference(seed, step, n_hosts, host_id):
+    kw = dict(vocab=100, seq_len=48, global_batch=8, seed=seed,
+              n_hosts=n_hosts, host_id=host_id,
+              extras={"frames": (lambda b, s: (b, 3, 5), np.float32)})
+    got = SyntheticLM(**kw).batch(step)
+    want = RefSyntheticLM(**kw).batch(step)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_batches_are_host_sharded():
+    full = SyntheticLM(vocab=100, seq_len=32, global_batch=8, seed=3)
+    h0 = SyntheticLM(vocab=100, seq_len=32, global_batch=8, seed=3,
+                     n_hosts=2, host_id=0)
+    h1 = SyntheticLM(vocab=100, seq_len=32, global_batch=8, seed=3,
+                     n_hosts=2, host_id=1)
+    np.testing.assert_array_equal(
+        np.concatenate([h0.batch(2)["tokens"], h1.batch(2)["tokens"]]),
+        full.batch(2)["tokens"])
+
+
+# ---------------------------------------------------------------------------
+# optimizer
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    cfg = get_config(ARCH, smoke=True)
+    rcfg = ref_get_config(ARCH, smoke=True)
+    rmodel = ref_get_model(rcfg)
+    jparams = rmodel.init_params(jax.random.PRNGKey(0))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                             device="cpu")
+    data = RefSyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                          seed=0)
+    jgrads = jax.jit(jax.grad(rmodel.loss_fn))(
+        jparams, {k: jnp.asarray(v) for k, v in data.batch(0).items()})
+    grads = params_from_jax(cfg, jax.tree.map(np.asarray, jgrads),
+                            device="cpu")
+    return cfg, rmodel, jparams, params, data, jgrads, grads
+
+
+@pytest.mark.parametrize("kind", ["cosine", "linear"])
+@pytest.mark.parametrize("warmup,total", [(0, 10), (5, 50), (20, 100)])
+def test_schedules_equal_reference(kind, warmup, total):
+    ours = {"cosine": cosine_schedule, "linear": linear_schedule}[kind]
+    ref = {"cosine": ref_cosine, "linear": ref_linear}[kind]
+    lr, rlr = ours(3e-3, warmup, total), ref(3e-3, warmup, total)
+    for step in (0, 1, warmup - 1, warmup, warmup + 1, total // 2, total - 1,
+                 total, total + 7):
+        np.testing.assert_allclose(float(lr(torch.tensor(step))),
+                                   float(rlr(step)), rtol=1e-6, atol=1e-12)
+
+
+def test_global_norm_and_clip_equal_reference(smoke):
+    from repro.optim import clip_by_global_norm as ref_clip
+    from repro.optim import global_norm as ref_norm
+
+    cfg, _, _, _, _, jgrads, grads = smoke
+    np.testing.assert_allclose(float(global_norm(grads)),
+                               float(ref_norm(jgrads)), rtol=1e-6)
+    clipped, g = clip_by_global_norm(grads, 0.5)
+    jclipped, jg = ref_clip(jgrads, 0.5)
+    np.testing.assert_allclose(float(g), float(jg), rtol=1e-6)
+    assert_tree_close(cfg, clipped, jclipped, atol=1e-7, rtol=1e-6)
+
+
+def test_adamw_update_equals_reference(smoke):
+    cfg, _, jparams, params, _, jgrads, grads = smoke
+    opt, ropt = adamw(cosine_schedule(1e-3, 2, 10)), \
+        ref_adamw(ref_cosine(1e-3, 2, 10))
+    state, rstate = opt.init(params), ropt.init(jparams)
+    for _ in range(3):  # moments and bias corrections past step 1
+        params, state, m = opt.update(grads, state, params)
+        jparams, rstate, rm = ropt.update(jgrads, rstate, jparams)
+    assert int(state["step"]) == int(rstate["step"]) == 3
+    np.testing.assert_allclose(float(m["lr"]), float(rm["lr"]), rtol=1e-6)
+    assert_tree_close(cfg, params, jparams, **STEP_TOL)
+    assert_tree_close(cfg, state["mu"], rstate["mu"], atol=1e-7, rtol=1e-5)
+    assert_tree_close(cfg, state["nu"], rstate["nu"], atol=1e-9, rtol=1e-5)
+
+
+def test_adamw_keeps_the_reference_dtypes():
+    """bf16 params: f32 moments, bf16 params back, decay on matrices only
+    (``ln_f``'s vector is not decayed; with zero grads only decay moves a
+    param)."""
+    p = {"embed": {"tokens": torch.ones(4, 3, dtype=torch.bfloat16)},
+         "ln_f": {"scale": torch.ones(3, dtype=torch.bfloat16)},
+         "layers": []}
+    g = tree_map(torch.zeros_like, p)
+    opt = adamw(0.5)
+    new, state, _ = opt.update(g, opt.init(p), p)
+    assert state["mu"]["embed"]["tokens"].dtype == torch.float32
+    assert new["embed"]["tokens"].dtype == torch.bfloat16
+    assert new["embed"]["tokens"][0, 0] == torch.tensor(0.95).bfloat16()
+    assert float(new["ln_f"]["scale"][0]) == 1.0
+
+
+def test_int8_compressed_update_equals_reference(smoke):
+    cfg, _, jparams, params, _, jgrads, grads = smoke
+    opt, ropt = int8_compressed(adamw(1e-3), cfg), ref_int8(ref_adamw(1e-3))
+    state, rstate = opt.init(params), ropt.init(jparams)
+    for _ in range(2):  # the second step feeds the first's residual back
+        params, state, _ = opt.update(grads, state, params)
+        jparams, rstate, _ = ropt.update(jgrads, rstate, jparams)
+    assert_tree_close(cfg, params, jparams, **STEP_TOL)
+    assert_tree_close(cfg, state["err"], rstate["err"], atol=1e-7, rtol=1e-4)
+
+
+def test_compress_equals_reference():
+    x = np.random.default_rng(3).standard_normal((7, 9)).astype(np.float32)
+    q, scale = compress(torch.from_numpy(x))
+    rq, rscale = ref_compress(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    np.testing.assert_allclose(float(scale), float(rscale), rtol=1e-7)
+    assert q.dtype == torch.int8
+    np.testing.assert_allclose(decompress(q, scale).numpy(), x,
+                               atol=float(scale) / 2 + 1e-7)
+
+
+# ---------------------------------------------------------------------------
+# train step and gradient accumulation
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_loss_with_accum_equals_reference(smoke, microbatches):
+    """Loss and gradients of the accumulating step, against the
+    reference's ``make_loss_with_accum`` at the f32 model bound; with one
+    microbatch they keep the param dtype, with more they come out f32."""
+    from repro.runtime.trainstep import make_loss_with_accum as ref_accum
+
+    cfg, rmodel, jparams, params, data, _, _ = smoke
+    model = get_model(cfg, device="cpu", attn="kernel")
+    batch = data.batch(0)
+    loss, grads = make_loss_with_accum(model.loss_fn, microbatches)(
+        params, batch)
+    jloss, jgrads = jax.jit(ref_accum(rmodel.loss_fn, microbatches))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(jloss), **MODEL_TOL)
+    assert_tree_close(cfg, grads, jgrads, **MODEL_TOL)
+
+
+def test_grad_accumulation_equivalence(smoke):
+    cfg, _, _, params, data, _, _ = smoke
+    model = get_model(cfg, device="cpu", attn="kernel")
+    opt = adamw(1e-3)
+    s1 = make_train_step(model.loss_fn, opt, microbatches=1)
+    s2 = make_train_step(model.loss_fn, opt, microbatches=2)
+    batch = data.batch(0)
+    p1, _, m1 = s1(params, opt.init(params), batch)
+    p2, _, m2 = s2(params, opt.init(params), batch)
+    assert float(m1["loss"]) == pytest.approx(float(m2["loss"]), rel=1e-5)
+    diff = max(float((a - b).abs().max()) for (_, a), (_, b) in
+               zip(tree_paths(p1), tree_paths(p2)))
+    assert diff < 2e-5
+
+
+# ---------------------------------------------------------------------------
+# checkpoints
+# ---------------------------------------------------------------------------
+
+
+def test_layout_round_trip(smoke):
+    cfg, _, jparams, params, _, _, _ = smoke
+    state = {"params": params, "opt": adamw(1e-3).init(params)}
+    ref_layout = to_reference_layout(cfg, state)
+    want = jax_paths(jparams)
+    for path, leaf in tree_paths(ref_layout["params"]):
+        np.testing.assert_array_equal(leaf.numpy(), want[path])
+    back = from_reference_layout(cfg, ref_layout)
+    for (pa, a), (pb, b) in zip(tree_paths(back), tree_paths(state)):
+        assert pa == pb and torch.equal(a, b)
+
+
+def test_port_checkpoint_loads_in_reference(smoke):
+    cfg, _, jparams, params, _, _, grads = smoke
+    opt, ropt = adamw(1e-3), ref_adamw(1e-3)
+    params, state, _ = opt.update(grads, opt.init(params), params)
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save_checkpoint(d, 7, to_reference_layout(
+            cfg, {"params": params, "opt": state}), extra={"note": 1})
+        like = {"params": jparams, "opt": ropt.init(jparams)}
+        tree, step, extra = ref_ckpt.load_checkpoint(d, like)
+    assert step == 7 and extra == {"note": 1}
+    assert_tree_close(cfg, params, tree["params"], atol=0, rtol=0)
+    assert_tree_close(cfg, state["nu"], tree["opt"]["nu"], atol=0, rtol=0)
+    assert int(tree["opt"]["step"]) == 1
+
+
+def test_reference_checkpoint_loads_in_port(smoke):
+    cfg, _, jparams, params, _, jgrads, _ = smoke
+    ropt = ref_adamw(1e-3)
+    jparams, rstate, _ = ropt.update(jgrads, ropt.init(jparams), jparams)
+    with tempfile.TemporaryDirectory() as d:
+        ref_ckpt.save_checkpoint(d, 3, {"params": jparams, "opt": rstate})
+        like = {"params": params, "opt": adamw(1e-3).init(params)}
+        shapes = to_reference_layout(cfg, like)
+        tree, step, _ = ckpt.load_checkpoint(d, shapes)
+    state = from_reference_layout(cfg, tree)
+    assert step == 3 and int(state["opt"]["step"]) == 1
+    assert_tree_close(cfg, state["params"], jparams, atol=0, rtol=0)
+    assert_tree_close(cfg, state["opt"]["mu"], rstate["mu"], atol=0, rtol=0)
+
+
+def test_bf16_leaves_keep_the_reference_format():
+    """A bf16 leaf is stored as the raw 2-byte values the reference's npz
+    holds for its bf16 arrays, and loads back bit-exact."""
+    x = np.random.default_rng(5).standard_normal((3, 4)).astype(np.float32)
+    t = torch.from_numpy(x).bfloat16()
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save_checkpoint(os.path.join(d, "port"), 1, {"w": t})
+        ref_ckpt.save_checkpoint(os.path.join(d, "ref"), 1,
+                                 {"w": jnp.asarray(x, jnp.bfloat16)})
+        with np.load(os.path.join(d, "port", "step_00000001",
+                                  "arrays.npz")) as a, \
+                np.load(os.path.join(d, "ref", "step_00000001",
+                                     "arrays.npz")) as b:
+            assert a["w"].dtype == b["w"].dtype
+            assert a["w"].tobytes() == b["w"].tobytes()
+        like = {"w": torch.empty(3, 4, dtype=torch.bfloat16)}
+        back, _, _ = ckpt.load_checkpoint(os.path.join(d, "ref"), like)
+    assert back["w"].dtype == torch.bfloat16 and torch.equal(back["w"], t)
+
+
+def test_checkpoint_keeps_k_and_rejects_bad_shapes():
+    with tempfile.TemporaryDirectory() as d:
+        for s in range(5):
+            ckpt.save_checkpoint(d, s, {"a": torch.full((2,), float(s))},
+                                 keep=2)
+        assert sorted(os.listdir(d)) == ["step_00000003", "step_00000004"]
+        assert ckpt.latest_step(d) == 4
+        tree, step, _ = ckpt.load_checkpoint(d, {"a": torch.empty(2)})
+        assert step == 4 and tree["a"].tolist() == [4.0, 4.0]
+        with pytest.raises(ValueError):
+            ckpt.load_checkpoint(d, {"a": torch.empty(3)})
+        with pytest.raises(KeyError):
+            ckpt.load_checkpoint(d, {"b": torch.empty(2)})
+
+
+# ---------------------------------------------------------------------------
+# the fault-tolerant loop (the port's versions of tests/test_runtime.py's)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tiny_setup(smoke):
+    cfg, _, _, params, _, _, _ = smoke
+    model = get_model(cfg, device="cpu", attn="kernel")
+    opt = adamw(1e-3)
+    step_fn = make_train_step(model.loss_fn, opt)
+    data = SyntheticLM(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=0)
+    return cfg, params, opt.init(params), step_fn, data
+
+
+def test_loop_trains_checkpoints_resumes(tiny_setup):
+    cfg, params, opt_state, step_fn, data = tiny_setup
+    with tempfile.TemporaryDirectory() as d:
+        p, o, rep = train_loop(step_fn, params, opt_state, data.batch,
+                               cfg=cfg, steps=8, ckpt_dir=d, ckpt_every=4,
+                               logger=lambda *a: None)
+        assert rep.steps_run == 8 and rep.resumed_from is None
+        assert rep.losses[-1] < rep.losses[0]
+        p, o, rep2 = train_loop(step_fn, params, opt_state, data.batch,
+                                cfg=cfg, steps=12, ckpt_dir=d, ckpt_every=4,
+                                logger=lambda *a: None)
+        assert rep2.resumed_from == 8 and rep2.steps_run == 4
+        assert int(o["step"]) == 12
+
+
+def test_loop_rolls_back_on_nan(tiny_setup):
+    cfg, params, opt_state, step_fn, data = tiny_setup
+    with tempfile.TemporaryDirectory() as d:
+        p, o, rep = train_loop(step_fn, params, opt_state, data.batch,
+                               cfg=cfg, steps=6, ckpt_dir=d, ckpt_every=2,
+                               inject_nan_at=3, logger=lambda *a: None)
+        assert rep.rollbacks == 1
+        assert all(np.isfinite(l) for l in rep.losses)
+        # rolled back to step 2's state and skipped batch 3
+        assert rep.steps_run == 5 and int(o["step"]) == 4
+
+
+def test_loop_survives_process_failure(tiny_setup):
+    """Injected crash mid-run; a fresh loop resumes from the checkpoint."""
+    cfg, params, opt_state, step_fn, data = tiny_setup
+    with tempfile.TemporaryDirectory() as d:
+        with pytest.raises(InjectedFailure):
+            train_loop(step_fn, params, opt_state, data.batch, cfg=cfg,
+                       steps=10, ckpt_dir=d, ckpt_every=2,
+                       inject_failure_at=5, logger=lambda *a: None)
+        p, o, rep = train_loop(step_fn, params, opt_state, data.batch,
+                               cfg=cfg, steps=10, ckpt_dir=d, ckpt_every=2,
+                               logger=lambda *a: None)
+        assert rep.resumed_from == 4  # last checkpoint before the crash
+        assert rep.steps_run == 6
+
+
+def test_loop_resumes_from_a_reference_run(smoke, tiny_setup):
+    """The JAX package's loop writes, the port's resumes: both hold the
+    same checkpoint layout."""
+    from repro.runtime import train_loop as ref_train_loop
+
+    cfg, rmodel, jparams, _, _, _, _ = smoke
+    _, params, opt_state, step_fn, data = tiny_setup
+    ropt = ref_adamw(1e-3)
+    rstep = jax.jit(ref_make_train_step(rmodel.loss_fn, ropt))
+    with tempfile.TemporaryDirectory() as d:
+        ref_train_loop(rstep, jparams, ropt.init(jparams), data.batch,
+                       steps=2, ckpt_dir=d, ckpt_every=2,
+                       logger=lambda *a: None)
+        _, o, rep = train_loop(step_fn, params, opt_state, data.batch,
+                               cfg=cfg, steps=3, ckpt_dir=d, ckpt_every=2,
+                               logger=lambda *a: None)
+    assert rep.resumed_from == 2 and rep.steps_run == 1
+    assert int(o["step"]) == 3
+
+
+def test_straggler_monitor_flags_outliers():
+    mon = StragglerMonitor(threshold=3.0)
+    for i in range(20):
+        assert not mon.observe(i, 0.1 + 0.001 * (i % 3))
+    assert mon.observe(20, 1.5)
+    assert mon.slow_steps and mon.slow_steps[0][0] == 20
+
+
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+
+
+def test_train_cli_on_cpu(capsys):
+    with tempfile.TemporaryDirectory() as d:
+        out = train_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                              "--steps", "3", "--seq-len", "32",
+                              "--global-batch", "4", "--microbatches", "2",
+                              "--ckpt-dir", d, "--ckpt-every", "2"])
+        assert sorted(os.listdir(os.path.join(d, "qwen3-0.6b"))) == \
+            ["step_00000000", "step_00000002", "step_00000003"]
+        again = train_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                                "--steps", "4", "--seq-len", "32",
+                                "--global-batch", "4", "--accel-target",
+                                "none", "--ckpt-dir", d])
+    text = capsys.readouterr().out
+    assert "[covenant] qwen3-0.6b block GEMMs" in text
+    assert "[train] done: 3 steps, loss" in text
+    assert out["report"].steps_run == 3
+    assert all(np.isfinite(out["report"].losses))
+    assert again["report"].resumed_from == 3
+    assert again["report"].steps_run == 1
+    # on CPU tensors the wrappers run their plain versions: no launches
+    assert not any(out["launches"].values())
+
+
+def test_train_cli_compress_grads_on_cpu(capsys):
+    """``--compress-grads``: the optimizer state grows the reference's
+    ``err`` tree, and the checkpoint holds it in the reference layout."""
+    with tempfile.TemporaryDirectory() as d:
+        out = train_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                              "--steps", "2", "--seq-len", "32",
+                              "--global-batch", "2", "--compress-grads",
+                              "--accel-target", "none", "--ckpt-dir", d])
+        with np.load(os.path.join(d, "qwen3-0.6b", "step_00000002",
+                                  "arrays.npz")) as z:
+            keys = set(z.files)
+    assert "[train] done: 2 steps" in capsys.readouterr().out
+    assert all(np.isfinite(out["report"].losses))
+    assert "opt|err|layers|#0|attn|wq" in keys
+    assert "opt|inner|mu|layers|#0|attn|wq" in keys
+    assert "opt|inner|step" in keys
