@@ -21,8 +21,22 @@
    ``build/train_ckpt``) with every launch counter set to 0 just before and
    read just after, and resumes the same run to 8 steps from its step-6
    checkpoint; then profiles one more train step for the card's busy share;
-5. prints a ``kernels`` JSON line and, last, the ``ok`` JSON line; the
-   per-case details go to ``chiprun_out/chip_smoke.json``.
+5. ssd: holds ``ssd_chunk_scan`` against its plain version at the
+   prefill shapes of mamba2-2.7b (bf16) and zamba2-2.7b (f32), and in f32
+   against the sequential oracle ``ssd_ref`` (ragged S, 2 groups, an
+   ``init_state`` continuation);
+6. and 7. serves full-width mamba2-2.7b, then zamba2-2.7b (seeded random
+   bf16 weights, 8 requests, batch 4, prompt 2048, 32 new tokens, cache
+   2080) through ``launch.serve`` with every counter from 0, requires the
+   SSD kernel once per mamba layer of each batch (and for zamba2 flash
+   attention once per shared-block use of each batch, flash decode once
+   per use of each decode step, at head_dim 160, checked first), compares
+   the kernel path with the plain path (gated in f32, printed in bf16
+   beside the bf16 model's own spread) and profiles one prefill; each
+   model is freed before the next loads;
+8. prints a ``kernels`` JSON line (six kernels, launches summed over every
+   path) and, last, the ``ok`` JSON line; the per-case details go to
+   ``chiprun_out/chip_smoke.json``.
 
 Every phase raises on failure; there is no CPU fallback.
 """
@@ -48,8 +62,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_fwd_lse, flash_attention_fwd_lse_plain,
     flash_attention_plain, flash_decode, flash_decode_plain)
 from repro_torch.kernels.matmul import matmul, matmul_plain  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ssd_chunk_local, ssd_chunk_local_plain, ssd_chunk_scan,
+    ssd_chunk_scan_plain)
 from repro_torch.kernels.tiling import (  # noqa: E402
-    attention_blocks, attention_bwd_blocks, decode_block_kv, gemm_blocks)
+    attention_blocks, attention_bwd_blocks, decode_block_kv, gemm_blocks,
+    ssd_blocks)
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.layers import lm_layer_gemms, mean_ms  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
@@ -75,6 +93,14 @@ TRAIN_ARGS = ["--arch", ARCH, "--seq-len", str(TRAIN_SEQ), "--global-batch",
               "--ckpt-every", "3", "--seed", "0", "--device", "cuda",
               "--attn", "kernel", "--ckpt-dir", str(CKPT_DIR)]
 MB = TRAIN_BATCH // MICROBATCHES  # the rows one forward/backward sees
+# mamba2-2.7b and zamba2-2.7b served at full width, the same traffic as
+# qwen3-0.6b with 2048-token prompts: the cache holds prompt + 32 new tokens
+SSM_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
+SSM_PROMPT, SSM_MAX_LEN = 2048, 2080
+SSD_CHUNK, SSD_HEADS, SSD_HEADDIM = 512, 80, 64   # both models' SSD
+SSD_INPUT_ROUNDING = 3 * 2.0 ** -9   # see check_ssd
+BF16_ULP = 2.0 ** -7                 # one bf16 ulp, relative, at most
+SSD_REF_ATOL = 2e-3                  # tests/test_kernels.py SSD bound
 U32 = 2.0 ** -24          # f32 unit roundoff
 ATTN_BF16_ATOL = 2e-2     # tests/test_kernels.py bf16 attention bound
 ATTN_F32_ATOL = 2e-3      # tests/test_kernels.py f32 attention bound
@@ -100,9 +126,12 @@ KERNELS = {
     "flash_attention_bwd": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
         replaces="src/repro/kernels/flash_attention.py:261"),
+    "ssd_chunk_scan": dict(
+        route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:63"),
 }
 KERNEL_FNS = (matmul, flash_attention, flash_decode, flash_attention_fwd_lse,
-              flash_attention_bwd)
+              flash_attention_bwd, ssd_chunk_scan)
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -191,8 +220,8 @@ def check_gemm(rec: Record, dev, gen, m: int, n: int, k: int,
             bound_by=b_by, library_ms=library_ms, main_path=main_path)
 
 
-def check_attention(rec: Record, dev, gen) -> None:
-    b, hq, hkv, s, d = BATCH, 16, 8, PROMPT, 128
+def check_attention(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=PROMPT,
+                    d=128) -> None:
     q = torch.randn((b, hq, s, d), generator=gen, device=dev).bfloat16()
     k = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
     v = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
@@ -219,13 +248,13 @@ def check_attention(rec: Record, dev, gen) -> None:
             library_ms=library_ms, main_path=True)
 
 
-def check_decode(rec: Record, dev, gen) -> None:
-    b, hq, hkv, s, d = BATCH, 16, 8, MAX_LEN, 128
+def check_decode(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=MAX_LEN,
+                 d=128, lens=(1, 300, 777, 1024)) -> None:
     g = hq // hkv
     q = torch.randn((b, hq, d), generator=gen, device=dev).bfloat16()
     k = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
     v = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
-    kv_len = torch.tensor([1, 300, 777, 1024], device=dev, dtype=torch.int32)
+    kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
     bkv = decode_block_kv(b * hkv, s, d, g)
     got = ops.covenant_decode_attention(q, k, v, kv_len, block_kv=bkv)
     qg, kf, vf = (q.reshape(b * hkv, g, d), k.reshape(b * hkv, s, d),
@@ -366,49 +395,115 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
 # ---------------------------------------------------------------------------
 
 
-def compare_paths(cfg, dev) -> tuple[dict, object, dict]:
+def compare_paths(cfg, dev, prompt: int = PROMPT, max_len: int = MAX_LEN,
+                  tol: float | None = LOGITS_REL_L2
+                  ) -> tuple[dict, dict, object, dict]:
     """Prefill last-token logits and the logits of 4 decode steps fed the
-    same tokens, kernel path against plain path, same weights.
+    same tokens, kernel path against plain path, same weights; gated at
+    relative L2 ``tol`` (None: printed only).  Returns (relative L2 by
+    step, argmax agreement by step, the kernel-path model, the weights).
 
-    Bound: relative L2 error <= 5e-2.  The two paths differ only inside
-    attention, which both compute in f32 and round to bf16 at different
-    points; each of the 28 layers adds a relative perturbation of about one
-    bf16 rounding (2^-8) to the residual stream, and such independent
-    perturbations grow like a random walk, sqrt(28) * 2^-8 ~= 2.1e-2."""
+    Bounds, each stated before the run that first held it:
+    * qwen3-0.6b in bf16, 5e-2: the two paths differ only inside
+      attention, which both compute in f32 and round to bf16 at different
+      points; each of the 28 layers adds a relative perturbation of about
+      one bf16 rounding (2^-8) to the residual stream, and such independent
+      perturbations grow like a random walk, sqrt(28) * 2^-8 ~= 2.1e-2.
+    * mamba2-2.7b and zamba2-2.7b in f32, 5e-2 (see ``compare_ssm``)."""
     kmodel = get_model(cfg, device=dev, attn="kernel")
     pmodel = get_model(cfg, device=dev, attn="plain")
     params = kmodel.init_params(1)
+    rel, agree = _compare(kmodel, pmodel, params, params, prompt, max_len,
+                          f"{cfg.name} {cfg.compute_dtype}", tol)
+    return rel, agree, kmodel, params
+
+
+def _compare(amodel, bmodel, aparams, bparams, prompt, max_len, label,
+             tol) -> tuple[dict, dict]:
+    """Logits of ``amodel`` against ``bmodel`` at prefill and 4 decode
+    steps fed ``bmodel``'s argmax; relative L2 and argmax agreement by
+    step, gated at ``tol`` unless it is None."""
+    cfg = amodel.cfg
     rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(2, cfg.vocab, (BATCH, PROMPT)),
-                           device=dev)
-    out = {}
-    kc, pc = kmodel.init_cache(BATCH, MAX_LEN), pmodel.init_cache(BATCH,
-                                                                 MAX_LEN)
-    kl, kc = kmodel.prefill(params, {"tokens": toks}, kc)
-    pl, pc = pmodel.prefill(params, {"tokens": toks}, pc)
-    steps = [(kl, pl)]
-    tok = pl.argmax(-1)
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab, (BATCH, prompt)),
+                           device=amodel.device)
+    ac, bc = amodel.init_cache(BATCH, max_len), bmodel.init_cache(BATCH,
+                                                                 max_len)
+    al, ac = amodel.prefill(aparams, {"tokens": toks}, ac)
+    bl, bc = bmodel.prefill(bparams, {"tokens": toks}, bc)
+    steps = [(al, bl)]
+    tok = bl.argmax(-1)
     for _ in range(4):
-        kl, kc = kmodel.decode_step(params, tok, kc)
-        pl, pc = pmodel.decode_step(params, tok, pc)
-        steps.append((kl, pl))
-        tok = pl.argmax(-1)
+        al, ac = amodel.decode_step(aparams, tok, ac)
+        bl, bc = bmodel.decode_step(bparams, tok, bc)
+        steps.append((al, bl))
+        tok = bl.argmax(-1)
+    del ac, bc
+    out, agreed = {}, {}
     for i, (a, b) in enumerate(steps):
         rel = float((a - b).norm() / b.norm())
         agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
         name = "prefill" if i == 0 else f"decode{i}"
-        print(f"[compare] {name}: rel_l2={rel:.3e} (tol {LOGITS_REL_L2}) "
+        print(f"[compare] {label} {name}: rel_l2={rel:.3e} (tol {tol}) "
               f"max_abs={float((a - b).abs().max()):.3e} "
               f"max|logit|={float(b.abs().max()):.3e} "
               f"argmax_agree={agree:.2f} finite={bool(torch.isfinite(a).all())}",
               flush=True)
         if not torch.isfinite(a).all() or a.shape != (BATCH, cfg.vocab):
-            raise AssertionError(f"{name}: logits not finite of shape "
-                                 f"{(BATCH, cfg.vocab)}")
-        if rel > LOGITS_REL_L2:
-            raise AssertionError(f"{name}: kernel vs plain rel_l2 {rel}")
-        out[name] = rel
-    return out, kmodel, params
+            raise AssertionError(f"{label} {name}: logits not finite of "
+                                 f"shape {(BATCH, cfg.vocab)}")
+        if tol is not None and rel > tol:
+            raise AssertionError(f"{label} {name}: rel_l2 {rel} > {tol}")
+        out[name], agreed[name] = rel, agree
+    return out, agreed
+
+
+def compare_ssm(cfg, dev) -> tuple[dict, object, dict]:
+    """mamba2-2.7b or zamba2-2.7b at full width, kernel path against plain
+    path: gated in f32, printed in bf16 beside the bf16 model's own
+    sensitivity.  Returns (the comparisons, the bf16 kernel-path model,
+    its weights).
+
+    Why f32.  Under a bf16 bound derived like qwen3's (one rounding of
+    the SSD output per layer, sqrt(64) * 2^-8 ~= 3.1e-2), mamba2's
+    prefill logits differed by 0.28.  The kernel path differs from the
+    plain path there in one place: ``covenant_ssd`` returns y in bf16,
+    ``ssd_chunked`` in f32.  In bf16 these random-weight models amplify
+    any such change: it flips bf16 roundings downstream, in dt among
+    them, whose sums over a chunk sit in Gamma's exponent.  So the bf16
+    comparison cannot tell a kernel fault from rounding.  It is printed
+    with the plain path's own spread: plain against plain with one
+    weight of layer 0 (its first norm scale entry) moved by one bf16
+    ulp.
+
+    Bound in f32, 5e-2, the serve gate: both paths compute the SSD from
+    the same f32 inputs in f32 and return f32, so they differ only in the
+    order of f32 sums, at most about 5e-4 of the terms' absolute sum
+    (``check_ssd`` at zamba2's f32 shape: 0.09 of its 3 * 2^-9 bound),
+    with no bf16 rounding for a change to flip.  A wrong index, mask or
+    state layout moves SSD outputs by their own size, and the logits by
+    far more than 5e-2."""
+    out = {}
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    rel, agree, model, params = compare_paths(f32, dev, SSM_PROMPT,
+                                              SSM_MAX_LEN)
+    out["float32"] = dict(rel_l2=rel, argmax_agree=agree)
+    del model, params
+    torch.cuda.empty_cache()
+    rel, agree, model, params = compare_paths(cfg, dev, SSM_PROMPT,
+                                              SSM_MAX_LEN, tol=None)
+    out["bfloat16"] = dict(rel_l2=rel, argmax_agree=agree)
+    pmodel = get_model(cfg, device=dev, attn="plain")
+    moved = {**params, "layers": [
+        {**params["layers"][0], "ln": {"scale": params["layers"][0]["ln"][
+            "scale"].clone()}}] + params["layers"][1:]}
+    moved["layers"][0]["ln"]["scale"][0] *= 1 + BF16_ULP
+    rel, agree = _compare(pmodel, pmodel, moved, params, SSM_PROMPT,
+                          SSM_MAX_LEN, f"{cfg.name} bf16 plain, one weight "
+                          "moved one ulp,", None)
+    out["bfloat16_plain_spread"] = dict(rel_l2=rel, argmax_agree=agree)
+    del moved, pmodel
+    return out, model, params
 
 
 def _profile(fn, label: str) -> dict:
@@ -597,6 +692,223 @@ def train_main_path() -> tuple[dict, dict, dict]:
     return stats, launches, resumed
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the SSD chunk scan; phases 6 and 7: mamba2 and zamba2 served
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(dev, gen, bh, bg, s, n, dtype, heads=SSD_HEADS):
+    """Head-batched SSD inputs as a prefill of mamba2-2.7b or zamba2-2.7b
+    gives them to the kernel (``ops.covenant_ssd``): x (BH, S, P), B and C
+    (BG, S, N) unit normals in ``dtype``; dt the softplus of a unit normal
+    (the models' dt projection, dt_bias 0); A the models' -linspace(1, 16,
+    H) for every head row, H = ``heads``."""
+    x = torch.randn((bh, s, SSD_HEADDIM), generator=gen, device=dev)
+    dt = F.softplus(torch.randn((bh, s), generator=gen, device=dev))
+    A = -torch.linspace(1.0, 16.0, heads, device=dev).repeat(bh // heads)
+    B = torch.randn((bg, s, n), generator=gen, device=dev)
+    C = torch.randn((bg, s, n), generator=gen, device=dev)
+    return x.to(dtype), dt, A, B.to(dtype), C.to(dtype)
+
+
+def _ssd_bound(x, B, n, chunk) -> tuple[float, str]:
+    """The chunk-local function's least time: its products over the causal
+    half of each chunk (C B^T and its product with dt * x, 2 (N + P)
+    operations a visible pair) and the end state (2 L N P a chunk), against
+    reading x, dt, A, B and C once and writing y_intra, the states and the
+    decay sums once (f32)."""
+    bh, s, p = x.shape
+    nck = s // chunk
+    cells = bh * nck
+    ops_count = cells * (chunk * (chunk + 1) / 2 * 2 * (n + p)
+                         + 2 * chunk * n * p)
+    nbytes = (bh * s * p * x.element_size() + bh * s * 4 + bh * 4
+              + 2 * B.numel() * B.element_size()
+              + bh * s * p * 4 + cells * n * p * 4 + cells * 4)
+    peak = H100["peak_bf16_flops"] if x.dtype == torch.bfloat16 \
+        else H100["peak_f32_flops"]
+    return bound(ops_count, peak, nbytes)
+
+
+def check_ssd(rec: Record, dev, gen, n: int, dtype: torch.dtype,
+              label: str) -> dict:
+    """``ssd_chunk_scan`` at a served model's prefill shape (batch 4 x
+    2048 tokens, 80 heads of 64, one group, chunk 512, state ``n``) against
+    its plain version on the same inputs: the chunk-local outputs (y_intra,
+    states, decay sums) of ``ssd_chunk_local`` and the whole function's y
+    and final state.
+
+    Bound, elementwise, stated before the first run: |kernel - plain| <=
+    3 * 2^-9 * T, plus one bf16 ulp (2^-7 |plain|) on a bf16 y.  T is the
+    same output computed from |x|, |B| and |C| (dt and Gamma are
+    positive): the sum of the absolute values of the terms.  Both versions
+    read the same inputs and compute in f32; they differ in the order of
+    the f32 sums, in the products and in the cumsum of dt * A inside
+    Gamma's exponent (near -3000 at a chunk's end with these A and dt,
+    where an f32 rounding is 1.2e-4 absolute: a relative error of about
+    1e-4 in the terms near the diagonal that carry y).  The bound is the
+    effect of one bf16 rounding (2^-9) of each of x, B and C, ten times
+    that; the inputs the models give come from bf16 activations, so
+    nothing finer reaches them.  A wrong index or mask moves outputs by
+    their own size, far above it."""
+    bh, bg, s, chunk = BATCH * SSD_HEADS, BATCH, SSM_PROMPT, SSD_CHUNK
+    x, dt, A, B, C = _ssd_inputs(dev, gen, bh, bg, s, n, dtype)
+    ax, aB, aC = x.abs().float(), B.abs().float(), C.abs().float()
+    err, worst = 0.0, 0.0
+
+    def hold(got, want, terms, rounded):
+        nonlocal err, worst
+        tol = SSD_INPUT_ROUNDING * terms
+        if rounded:
+            tol = tol + BF16_ULP * want.float().abs()
+        diff = (got.float() - want.float()).abs()
+        err = max(err, float(diff.max()))
+        worst = max(worst, float((diff / tol.clamp_min(1e-30)).max()))
+
+    got = ssd_chunk_local(x, dt, A, B, C, chunk=chunk)
+    want = ssd_chunk_local_plain(x, dt, A, B, C, chunk=chunk)
+    terms = ssd_chunk_local_plain(ax, dt, A, aB, aC, chunk=chunk)
+    for g_, w_, t_ in zip(got, want, (*terms[:2], want[2].abs())):
+        hold(g_, w_, t_, False)
+    del got, want, terms
+    y, st = ssd_chunk_scan(x, dt, A, B, C, chunk=chunk)
+    wy, wst = ssd_chunk_scan_plain(x, dt, A, B, C, chunk=chunk)
+    ty, tst = ssd_chunk_scan_plain(ax, dt, A, aB, aC, chunk=chunk)
+    hold(y, wy, ty, dtype == torch.bfloat16)
+    hold(st, wst, tst, False)
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+    del y, st, wy, wst, ty, tst, ax, aB, aC
+    torch.cuda.synchronize()
+    ms = mean_ms(lambda: ssd_chunk_local(x, dt, A, B, C, chunk=chunk),
+                 dev, 10)
+    plain_ms = mean_ms(lambda: ssd_chunk_local_plain(x, dt, A, B, C,
+                                                     chunk=chunk), dev, 3)
+    full_ms = mean_ms(lambda: ssd_chunk_scan(x, dt, A, B, C, chunk=chunk),
+                      dev, 10)
+    full_plain_ms = mean_ms(lambda: ssd_chunk_scan_plain(
+        x, dt, A, B, C, chunk=chunk), dev, 3)
+    b_ms, b_by = _ssd_bound(x, B, n, chunk)
+    bl, bc = ssd_blocks(chunk, n, SSD_HEADDIM, heads=bh * (s // chunk))
+    dt_name = "bf16" if dtype == torch.bfloat16 else "f32"
+    print(f"[ssd] {label}: the whole function (kernel + torch inter-chunk "
+          f"stage) {full_ms:.4f} ms, plain {full_plain_ms:.4f} ms; worst "
+          f"|kernel - plain| / bound {worst:.3e}; finite {finite}",
+          flush=True)
+    rec.add("ssd_chunk_scan",
+            f"{label} BH{bh} S{s} N{n} P{SSD_HEADDIM} L{chunk} {dt_name} "
+            f"b{bl}x{bc}", err=err, ok=worst <= 1.0 and finite,
+            tol="3*2^-9*T (+2^-7|y| bf16)", ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, main_path=True)
+    return dict(case=label, worst_ratio=worst, full_ms=full_ms,
+                full_plain_ms=full_plain_ms)
+
+
+def check_ssd_ref(rec: Record, dev, gen) -> None:
+    """The kernel path of ``ops.covenant_ssd`` in f32 against the
+    sequential oracle ``ssd_ref`` at the bound of ``tests/test_kernels.py``
+    (atol 2e-3) and its inputs (dt in [0.01, 0.2], A in [-2, -0.5]): a
+    ragged S (1000 with chunk 512), 2 groups of 4 heads, and the sequence
+    split at 600 and continued from the first part's state."""
+    b, s, h, g, n, p = 1, 1000, 8, 2, 128, SSD_HEADDIM
+    x = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dt = 0.01 + 0.19 * torch.rand((b, s, h), generator=gen, device=dev)
+    A = -(0.5 + 1.5 * torch.rand((h,), generator=gen, device=dev))
+    B = torch.randn((b, s, g, n), generator=gen, device=dev)
+    C = torch.randn((b, s, g, n), generator=gen, device=dev)
+    want, wst = ops.ssd_ref(x, dt, A, B, C, return_state=True)
+    y, st = ops.covenant_ssd(x, dt, A, B, C, chunk=SSD_CHUNK,
+                             return_state=True)
+    half = 600
+    y1, st1 = ops.covenant_ssd(x[:, :half], dt[:, :half], A, B[:, :half],
+                               C[:, :half], chunk=SSD_CHUNK,
+                               return_state=True)
+    y2, st2 = ops.covenant_ssd(x[:, half:], dt[:, half:], A, B[:, half:],
+                               C[:, half:], chunk=SSD_CHUNK, init_state=st1,
+                               return_state=True)
+    torch.cuda.synchronize()
+    err = max(float((a - w).abs().max()) for a, w in (
+        (y, want), (st, wst), (torch.cat([y1, y2], 1), want), (st2, wst)))
+    # the head-batched shape the kernel sees: S padded to 1024
+    xf, dtf, af, bf, cf = _ssd_inputs(dev, gen, b * h, b * g, 1024, n,
+                                      torch.float32, heads=h)
+    ms = mean_ms(lambda: ssd_chunk_local(xf, dtf, af, bf, cf,
+                                         chunk=SSD_CHUNK), dev, 10)
+    plain_ms = mean_ms(lambda: ssd_chunk_local_plain(
+        xf, dtf, af, bf, cf, chunk=SSD_CHUNK), dev, 10)
+    b_ms, b_by = _ssd_bound(xf, bf, n, SSD_CHUNK)
+    rec.add("ssd_chunk_scan",
+            f"vs ssd_ref S{s} H{h} G{g} N{n} P{p} L{SSD_CHUNK} f32 +init",
+            err=err, ok=err <= SSD_REF_ATOL, tol=SSD_REF_ATOL, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, main_path=False)
+
+
+def profile_prefill(model, params) -> dict:
+    """One prefill of the served shape (kernel path) under the profiler,
+    after one outside it."""
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(2, model.cfg.vocab,
+                                        (BATCH, SSM_PROMPT)),
+                           device=model.device)
+
+    def run():
+        cache = model.init_cache(BATCH, SSM_MAX_LEN)
+        return model.prefill(params, {"tokens": toks}, cache)[0]
+
+    run()
+    return _profile(run, f"{model.cfg.name} prefill")
+
+
+def serve_ssm(rec: Record, dev, gen, arch: str) -> dict:
+    """The served path of ``arch`` at full width: its layer report's GEMM
+    shapes (and, for zamba2, attention and decode at head_dim 160) checked,
+    then ``launch.serve`` with every counter from 0, the launch counts
+    required, kernel path against plain path, and a profiled prefill."""
+    cfg = configs.get_config(arch)
+    for g in lm_layer_gemms(cfg, BATCH):
+        check_gemm(rec, dev, gen, g.tokens, g.n, g.k, torch.bfloat16,
+                   f"{arch[:6]} decode {g.name.split('_', 3)[-1]}",
+                   main_path=True)
+    n_groups, _ = cfg.layer_groups()
+    if cfg.family == "hybrid":
+        hd = 2 * cfg.d_model // cfg.n_heads
+        check_attention(rec, dev, gen, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                        s=SSM_PROMPT, d=hd)
+        check_decode(rec, dev, gen, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                     s=SSM_MAX_LEN, d=hd, lens=(1, 700, 2049, 2080))
+    args = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
+            str(SSM_PROMPT), "--max-new", str(MAX_NEW), "--requests",
+            str(REQUESTS), "--max-len", str(SSM_MAX_LEN), "--seed", "0",
+            "--device", "cuda", "--attn", "kernel"]
+    for fn in KERNEL_FNS:
+        fn.launches = 0
+    stats = serve.main(args)
+    torch.cuda.synchronize()
+    launches = serve.kernel_launches()
+    expected = {"ssd_chunk_scan": cfg.n_layers * stats["batches"]}
+    if cfg.family == "hybrid":
+        expected["flash_attention"] = n_groups * stats["batches"]
+        expected["flash_decode"] = n_groups * stats["decode_steps"]
+    print(f"[serve] {arch} launches on the main path: {launches}; required "
+          f"{expected} ({stats['batches']} batches, {stats['decode_steps']} "
+          f"decode steps)", flush=True)
+    for name, n in expected.items():
+        if launches[name] != n:
+            raise AssertionError(f"{arch}: {name} launched {launches[name]}"
+                                 f" times, not {n}")
+    if launches["matmul"] <= 0:
+        raise AssertionError(f"{arch}: the layer report never launched "
+                             "matmul")
+    compared, model, params = compare_ssm(cfg, dev)
+    prof = profile_prefill(model, params)
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(tok_per_s=stats["tok_per_s"], new_tokens=stats["new_tokens"],
+                seconds=stats["seconds"], batch_seconds=stats["batch_seconds"],
+                launches=launches, required=expected, compare=compared,
+                profile_prefill=prof)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card; the port runs on the "
@@ -650,10 +962,10 @@ def main() -> None:
     torch.cuda.synchronize()
     serve_launches = serve.kernel_launches()
     print(f"[serve] launches on the main path: {serve_launches}", flush=True)
-    for name, n in serve_launches.items():
-        if n <= 0:
+    for name in ("matmul", "flash_attention", "flash_decode"):
+        if serve_launches[name] <= 0:
             raise AssertionError(f"main path never launched {name}")
-    rel, model, params = compare_paths(cfg, dev)
+    rel, agree, model, params = compare_paths(cfg, dev)
     prof = profile_batch(model, params)
     del model, params
     torch.cuda.empty_cache()
@@ -683,9 +995,26 @@ def main() -> None:
     print(f"[phase] train done at {time.perf_counter() - t0:.1f}s",
           flush=True)
 
-    # phase 5: the kernels line, launches summed over both main paths
-    launches = {k: serve_launches.get(k, 0) + train_launches[k]
-                for k in train_launches}
+    # phase 5: the SSD chunk scan at both models' prefill shapes (mamba2's
+    # SSD sees bf16 inputs, zamba2's f32: its conv runs in f32), and in f32
+    # against the sequential oracle
+    ssd = [check_ssd(rec, dev, gen, 128, torch.bfloat16, "mamba2"),
+           check_ssd(rec, dev, gen, 64, torch.float32, "zamba2")]
+    check_ssd_ref(rec, dev, gen)
+    print(f"[phase] ssd checks done at {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    # phases 6 and 7: mamba2-2.7b, then zamba2-2.7b, served at full width
+    ssm = {}
+    for arch in SSM_ARCHS:
+        ssm[arch] = serve_ssm(rec, dev, gen, arch)
+        print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
+              f"{ssm[arch]['tok_per_s']:.1f} tok/s", flush=True)
+
+    # the kernels line, launches summed over every main path
+    paths = [serve_launches, train_launches] + [r["launches"]
+                                                for r in ssm.values()]
+    launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     kernels = []
     for name, meta in KERNELS.items():
         cases = [c for c in rec.cases if c["kernel"] == name]
@@ -713,7 +1042,7 @@ def main() -> None:
         tok_per_s=stats["tok_per_s"], new_tokens=stats["new_tokens"],
         seconds=stats["seconds"], requests=stats["requests"],
         batch_seconds=stats["batch_seconds"]),
-        compare_rel_l2=rel, profile=prof, train=dict(
+        compare_rel_l2=rel, argmax_agree=agree, profile=prof, train=dict(
             ms_per_step=tstats["ms_per_step"],
             tokens_per_s=tstats["tokens_per_s"],
             step_seconds=rep.step_seconds, losses=rep.losses,
@@ -721,7 +1050,7 @@ def main() -> None:
             resumed_from=resumed["report"].resumed_from,
             resumed_steps=resumed["report"].steps_run, gates=gates,
             profile=train_prof),
-        launches=launches, cases=rec.cases)
+        ssd=ssd, ssm=ssm, launches=launches, cases=rec.cases)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

@@ -7,10 +7,12 @@ from __future__ import annotations
 
 from repro_torch.models.config import ArchConfig
 
-from . import qwen3_0_6b
+from . import mamba2_2_7b, qwen3_0_6b, zamba2_2_7b
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0_6b,
+    "mamba2-2.7b": mamba2_2_7b,
+    "zamba2-2.7b": zamba2_2_7b,
 }
 
 ARCHS = tuple(_MODULES)

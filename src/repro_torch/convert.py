@@ -1,12 +1,14 @@
 """Carry parameter trees between the JAX package's layout and the port's.
 
-``params_from_jax(cfg, tree)`` takes the tree that
-``repro.models.transformer.init_params`` returns, with its leaves as numpy
-arrays (``jax.tree.map(np.asarray, params)``), and returns the port's
-parameters with the same key paths.  The reference stacks every layer leaf
-as ``(n_groups, ...)`` inside a list of ``per`` subtrees (one per position
-in the layer pattern); the port keeps one dict per layer, so layer
-``g * per + j`` is leaf ``[g]`` of subtree ``j``.  Weight layouts stay
+``params_from_jax(cfg, tree)`` takes the tree that the reference's
+``init_params`` returns (``transformer``, ``mamba`` or ``zamba``), with its
+leaves as numpy arrays (``jax.tree.map(np.asarray, params)``), and returns
+the port's parameters with the same key paths.  The reference stacks every
+layer leaf as ``(n_groups, ...)`` inside a list of ``per`` subtrees (one
+per position in the layer pattern); the port keeps one dict per layer, so
+layer ``g * per + j`` is leaf ``[g]`` of subtree ``j``.  zamba2's
+``loras``, one adapter per group stacked ``(n_groups, ...)`` in the
+reference, become a list with one dict per group.  Weight layouts stay
 ``(in, out)``, as ``x @ W`` uses them.  numpy has no bfloat16: bf16
 leaves arrive as ``ml_dtypes.bfloat16`` and cross as raw bits.
 
@@ -34,16 +36,24 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
+# subtrees the reference stacks by layer group
+_STACKED = ("layers", "loras")
+
+
 def _unstack(cfg: ArchConfig, tree: dict, leaf) -> dict:
     n_groups, per = cfg.layer_groups()
     stacked = tree["layers"]
     if len(stacked) != per:
         raise ValueError(f"{cfg.name}: expected {per} stacked subtrees, "
                          f"got {len(stacked)}")
-    layers = [tree_map(lambda a, g=g: leaf(a[g]), stacked[j])
-              for g in range(n_groups) for j in range(per)]
-    return {**{k: tree_map(leaf, v) for k, v in tree.items()
-               if k != "layers"}, "layers": layers}
+    out = {k: tree_map(leaf, v) for k, v in tree.items()
+           if k not in _STACKED}
+    out["layers"] = [tree_map(lambda a, g=g: leaf(a[g]), stacked[j])
+                     for g in range(n_groups) for j in range(per)]
+    if "loras" in tree:
+        out["loras"] = [tree_map(lambda a, g=g: leaf(a[g]), tree["loras"])
+                        for g in range(n_groups)]
+    return out
 
 
 def params_from_jax(cfg: ArchConfig, tree: dict, *,
@@ -54,7 +64,8 @@ def params_from_jax(cfg: ArchConfig, tree: dict, *,
 
 def params_to_jax(cfg: ArchConfig, tree: dict) -> dict:
     """The reference's layout of a port param-shaped tree: each layer leaf
-    stacked ``(n_groups, ...)`` in the subtree of its pattern position.
+    stacked ``(n_groups, ...)`` in the subtree of its pattern position, and
+    zamba2's ``loras`` stacked ``(n_groups, ...)``.
     Leaves stay tensors on their device (``meta`` ones give the layout's
     shapes for free)."""
     n_groups, per = cfg.layer_groups()
@@ -62,10 +73,12 @@ def params_to_jax(cfg: ArchConfig, tree: dict) -> dict:
     if len(layers) != n_groups * per:
         raise ValueError(f"{cfg.name}: expected {n_groups * per} layers, "
                          f"got {len(layers)}")
-    stacked = [tree_map(lambda *xs: torch.stack(xs),
-                        *layers[j::per]) for j in range(per)]
-    return {**{k: v for k, v in tree.items() if k != "layers"},
-            "layers": stacked}
+    out = {k: v for k, v in tree.items() if k not in _STACKED}
+    out["layers"] = [tree_map(lambda *xs: torch.stack(xs), *layers[j::per])
+                     for j in range(per)]
+    if "loras" in tree:
+        out["loras"] = tree_map(lambda *xs: torch.stack(xs), *tree["loras"])
+    return out
 
 
 def _is_params(tree) -> bool:

@@ -4,7 +4,7 @@ The counterpart of ``repro/kernels/ops.py`` with the same signatures, less
 ``interpret``: a CPU tensor runs each kernel's plain PyTorch version, a
 CUDA tensor launches the Hopper kernel or raises.  Block geometry defaults
 to the Covenant tiler's Algorithm-1 choice against the ``h100`` covenant
-(``tiling.gemm_blocks`` / ``attention_blocks``).
+(``tiling.gemm_blocks`` / ``attention_blocks`` / ``ssd_blocks``).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from . import ref as _ref
 from .flash_attention import FlashAttention
 from .flash_attention import flash_attention as _fa, flash_decode as _fd
 from .matmul import matmul as _mm
+from .ssd_scan import ssd_chunk_scan as _ssd
 from .tiling import attention_blocks, attention_bwd_blocks, gemm_blocks
 
 
@@ -98,9 +99,39 @@ def covenant_decode_attention(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, hq, d)
 
 
+def covenant_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, *, chunk: int = 64,
+                 init_state: torch.Tensor | None = None,
+                 return_state: bool = False):
+    """Mamba2 SSD over (b, s, h, p) inputs with (b, s, g, n) B/C; dt
+    (b, s, h) after softplus, A (h,).  The state, ``init_state`` and the
+    returned one, is (b, h, p, n), as in ``ref.ssd_ref``.  S is padded to
+    the chunk with dt = 0, so a padded step neither decays nor adds.  B and
+    C are passed per group, unrepeated: the kernel reads group
+    ``h // (H / G)`` for head ``h``."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    ck = min(chunk, s)
+    spad = -(-s // ck) * ck
+    xf = _pad_to(x, 1, ck).transpose(1, 2).reshape(b * h, spad, p)
+    dtf = _pad_to(dt, 1, ck).transpose(1, 2).reshape(b * h, spad)
+    bf = _pad_to(B, 1, ck).transpose(1, 2).reshape(b * g, spad, n)
+    cf = _pad_to(C, 1, ck).transpose(1, 2).reshape(b * g, spad, n)
+    af = A.repeat(b)
+    st0 = None
+    if init_state is not None:
+        st0 = init_state.reshape(b * h, p, n).transpose(1, 2)  # (BH,N,P)
+    y, fin = _ssd(xf, dtf, af, bf, cf, chunk=ck, init_state=st0)
+    y = y[:, :s].reshape(b, h, s, p).transpose(1, 2)
+    if return_state:
+        return y, fin.transpose(1, 2).reshape(b, h, p, n)
+    return y
+
+
 # re-export oracles for convenience
 matmul_ref = _ref.matmul_ref
 attention_ref = _ref.attention_ref
+ssd_ref = _ref.ssd_ref
 
 __all__ = ["attention_ref", "covenant_attention", "covenant_decode_attention",
-           "covenant_matmul", "matmul_ref"]
+           "covenant_matmul", "covenant_ssd", "matmul_ref", "ssd_ref"]

@@ -1,7 +1,6 @@
 """Plain-PyTorch oracles, the counterparts of ``repro/kernels/ref.py``.
 
-These are the semantics every kernel is held to.  ``ssd_ref`` comes with
-the SSM slice of the port.
+These are the semantics every kernel is held to.
 """
 from __future__ import annotations
 
@@ -56,4 +55,43 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
-__all__ = ["attention_ref", "matmul_ref"]
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor | None = None,
+            init_state: torch.Tensor | None = None,
+            return_state: bool = False):
+    """Mamba2 SSD oracle: the exact sequential recurrence.
+
+    x:  (b, s, h, p)   inputs per head
+    dt: (b, s, h)      softplus-activated step sizes (> 0)
+    A:  (h,)           negative decay rates
+    B:  (b, s, g, n)   input projections (g groups, heads share groups)
+    C:  (b, s, g, n)   output projections
+    D:  (h,)           optional skip
+    state: (b, h, p, n)
+
+    h_t = exp(A dt_t) * h_{t-1} + dt_t * x_t B_t^T ;  y_t = h_t C_t
+    """
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    bh = B.float().repeat_interleave(rep, dim=2)     # (b,s,h,n)
+    ch = C.float().repeat_interleave(rep, dim=2)
+    xf, dtf = x.float(), dt.float()
+    decay = torch.exp(A.float()[None, None, :] * dtf)  # (b,s,h)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(s):
+        state = state * decay[:, t, :, None, None] + \
+            (dtf[:, t, :, None] * xf[:, t])[..., None] * bh[:, t, :, None, :]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, ch[:, t]))
+    y = torch.stack(ys, 1)  # (b,s,h,p)
+    if D is not None:
+        y = y + xf * D.float()[None, None, :, None]
+    y = y.to(x.dtype)
+    if return_state:
+        return y, state
+    return y
+
+
+__all__ = ["attention_ref", "matmul_ref", "ssd_ref"]

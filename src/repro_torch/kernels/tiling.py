@@ -20,7 +20,8 @@ equivalent QK^T GEMM, then bounds the flash working set by shared memory;
 ``attention_bwd_blocks`` shrinks that tiling to the backward kernels'
 larger working set; ``decode_block_kv`` is its kv block for the decode
 kernel, whose split kv walk is what fills the card when batch x kv heads
-is small.
+is small.  ``ssd_blocks`` sizes the SSD chunk kernel's row and column
+blocks the same way, through the equivalent C B^T GEMM of one chunk.
 """
 from __future__ import annotations
 
@@ -197,6 +198,46 @@ def decode_block_kv(rows: int, seq_k: int, head_dim: int,
     return attention_blocks(group, seq_k, head_dim, heads=rows)[1]
 
 
+def ssd_smem_bytes(block_l: int, block_c: int, chunk: int, state: int,
+                   headdim: int) -> int:
+    """Shared memory of one block of the SSD intra-chunk kernel, in its
+    layout (``csrc/ssd_scan.cu``): the chunk's f32 cumsum and 32 scan
+    partials, f32 C (bl, n+1) and B (bc, n+1) tiles, the (bc, p) dt * x
+    tile and the (bl, bc+1) C B^T * Gamma tile.  The state kernel's
+    working set is a subset of it."""
+    n = state
+    floats = (chunk + 32 + block_l * (n + 1) + block_c * (n + 1)
+              + block_c * headdim + block_l * (block_c + 1))
+    return 4 * floats
+
+
+def ssd_blocks(chunk: int, state: int, headdim: int,
+               heads: int = 1) -> tuple[int, int]:
+    """(block_l, block_c): the rows of a chunk one block of the SSD kernel
+    computes, and the column block it walks them with.  The Covenant tiler
+    sizes them through the equivalent C B^T GEMM of one chunk (m = n =
+    chunk, k = state), one per (batch x head, chunk) (``heads``), as
+    ``attention_blocks`` does through QK^T; then shared memory
+    (``ssd_smem_bytes``) and the register budget of the (bl, headdim)
+    output and the (bl, bc) scores bound them."""
+    bm, bn, _ = gemm_blocks(chunk, chunk, state, grid_batch=heads)
+    bl = min(bm, chunk) if chunk >= WARPGROUP_M else chunk
+    bc = min(_round_up(bn, N_UNIT), chunk)
+    smem_b, rf_b = _budgets()
+    while bl > WARPGROUP_M and bl * headdim * 4 > rf_b:
+        bl //= 2
+    while (ssd_smem_bytes(bl, bc, chunk, state, headdim) > smem_b
+           or bl * bc * 4 > rf_b):
+        if bc > N_UNIT:
+            bc = _round_up(bc // 2, N_UNIT)
+        elif bl > WARPGROUP_M:
+            bl //= 2
+        else:
+            break
+    return bl, bc
+
+
 __all__ = ["K_UNIT", "N_UNIT", "WARPGROUP_M", "attention_blocks",
            "attention_bwd_blocks", "decode_block_kv", "flash_bwd_smem_bytes",
-           "flash_smem_bytes", "gemm_blocks", "gemm_fits"]
+           "flash_smem_bytes", "gemm_blocks", "gemm_fits", "ssd_blocks",
+           "ssd_smem_bytes"]

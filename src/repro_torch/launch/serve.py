@@ -5,11 +5,11 @@ The counterpart of ``repro/launch/serve.py``: a batch of requests is
 prefilled, then decoded step by step against the KV cache (updated in
 place); when the batch is done its slots go to the next requests in the
 queue.  Runs on ``--device cuda`` unless asked otherwise; ``--attn kernel``
-sends attention through the Hopper kernels, ``--attn plain`` through plain
-PyTorch.  Before serving, as the reference prints its per-layer cycle
-report, this prints ``launch.layers.layer_report``: the model's block GEMMs
-at the decode batch through the Covenant-tiled GEMM kernel, timed on the
-device.
+sends attention and the SSD through the Hopper kernels, ``--attn plain``
+through plain PyTorch.  Before serving, as the reference prints its
+per-layer cycle report, this prints ``launch.layers.layer_report``: the
+model's block GEMMs at the decode batch through the Covenant-tiled GEMM
+kernel, timed on the device.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 from .. import configs
 from ..kernels.flash_attention import flash_attention, flash_decode
 from ..kernels.matmul import matmul
+from ..kernels.ssd_scan import ssd_chunk_scan
 from .layers import layer_report
 from ..models import Model, get_model
 
@@ -67,7 +68,8 @@ def serve(model: Model, params: dict, prompts: list, *, batch: int,
 def kernel_launches() -> dict[str, int]:
     return {"matmul": matmul.launches,
             "flash_attention": flash_attention.launches,
-            "flash_decode": flash_decode.launches}
+            "flash_decode": flash_decode.launches,
+            "ssd_chunk_scan": ssd_chunk_scan.launches}
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -95,9 +97,9 @@ def main(argv: list[str] | None = None) -> dict:
                for _ in range(args.requests)]
     per_batch: list[float] = []
     t0 = time.perf_counter()
-    _, total_tokens = serve(model, params, prompts, batch=args.batch,
-                            max_new=args.max_new, max_len=args.max_len,
-                            batch_seconds=per_batch)
+    outputs, total_tokens = serve(model, params, prompts, batch=args.batch,
+                                  max_new=args.max_new, max_len=args.max_len,
+                                  batch_seconds=per_batch)
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -110,7 +112,9 @@ def main(argv: list[str] | None = None) -> dict:
           " ".join(f"{k}={v}" for k, v in launches.items()))
     return {"requests": len(prompts), "new_tokens": total_tokens,
             "seconds": dt, "tok_per_s": total_tokens / dt,
-            "batch_seconds": per_batch, "launches": launches}
+            "batch_seconds": per_batch, "launches": launches,
+            "batches": len(outputs),
+            "decode_steps": sum(o.shape[1] - 1 for o in outputs)}
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ from ..data import SyntheticLM
 from ..kernels.flash_attention import (flash_attention, flash_attention_bwd,
                                        flash_attention_fwd_lse, flash_decode)
 from ..kernels.matmul import matmul
+from ..kernels.ssd_scan import ssd_chunk_scan
 from ..models import get_model
 from ..optim import adamw, cosine_schedule, int8_compressed
 from ..runtime import make_train_step, train_loop
@@ -36,7 +37,8 @@ def kernel_launches() -> dict[str, int]:
             "flash_attention": flash_attention.launches,
             "flash_attention_fwd_lse": flash_attention_fwd_lse.launches,
             "flash_attention_bwd": flash_attention_bwd.launches,
-            "flash_decode": flash_decode.launches}
+            "flash_decode": flash_decode.launches,
+            "ssd_chunk_scan": ssd_chunk_scan.launches}
 
 
 def main(argv: list[str] | None = None) -> dict:

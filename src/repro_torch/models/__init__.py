@@ -8,11 +8,13 @@
 * ``prefill(params, batch, cache)``         -> (last logits (B,V), cache)
 * ``decode_step(params, tokens, cache)``    -> (logits (B,V), cache)
 
-So far it holds the ``dense`` family; ``extra_inputs`` comes with the
-encoder-decoder and VLM families.  Everything runs on ``device`` (``cuda``
-unless the caller asks for ``cpu``); ``loss_fn`` takes a batch of numpy
-arrays or tensors and moves it there.  ``attn`` picks the attention path
-(``models.attention``).
+So far it holds the ``dense``, ``ssm`` (mamba2) and ``hybrid`` (zamba2)
+families; ``extra_inputs`` comes with the encoder-decoder and VLM families.
+Everything runs on ``device`` (``cuda`` unless the caller asks for
+``cpu``); ``loss_fn`` takes a batch of numpy arrays or tensors and moves it
+there.  ``attn`` picks the path of every kernel of the model: the kernel
+path (``"kernel"``) or plain PyTorch (``"plain"``), for attention
+(``models.attention``) and the SSD (``models.ssm.ssd``) alike.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Any, Callable
 
 import torch
 
-from . import attention, common, config, transformer
+from . import attention, common, config, mamba, ssm, transformer, zamba
 from .config import ArchConfig
 
 
@@ -39,31 +41,36 @@ class Model:
 def get_model(cfg: ArchConfig, *, device: str | torch.device = "cuda",
               attn: str = "kernel") -> Model:
     device = torch.device(device)
+    try:
+        mod = _FAMILIES[cfg.family]
+    except KeyError:
+        raise KeyError(f"model family {cfg.family!r} is not ported yet") \
+            from None
 
     def init_params(seed: int) -> dict:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return transformer.init_params(cfg, gen)
+        return mod.init_params(cfg, gen)
 
     def on_device(batch: dict) -> dict:
         return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
-    if cfg.family == "dense":
-        return Model(
-            cfg,
-            device,
-            init_params=init_params,
-            loss_fn=lambda p, b: transformer.loss_fn(cfg, p, on_device(b),
-                                                     attn=attn),
-            init_cache=lambda bs, ml: transformer.init_cache(
-                cfg, bs, ml, device=device),
-            prefill=lambda p, b, c: transformer.prefill(
-                cfg, p, b["tokens"], c, attn=attn),
-            decode_step=lambda p, t, c: transformer.decode_step(
-                cfg, p, t, c, attn=attn),
-        )
-    raise KeyError(f"model family {cfg.family!r} is not ported yet")
+    # mamba2's decode is plain torch on both paths: it takes no ``attn``
+    decode_kw = {} if mod is mamba else {"attn": attn}
+    return Model(
+        cfg,
+        device,
+        init_params=init_params,
+        loss_fn=lambda p, b: mod.loss_fn(cfg, p, on_device(b), attn=attn),
+        init_cache=lambda bs, ml: mod.init_cache(cfg, bs, ml, device=device),
+        prefill=lambda p, b, c: mod.prefill(cfg, p, b["tokens"], c,
+                                            attn=attn),
+        decode_step=lambda p, t, c: mod.decode_step(cfg, p, t, c,
+                                                    **decode_kw),
+    )
 
+
+_FAMILIES = {"dense": transformer, "ssm": mamba, "hybrid": zamba}
 
 __all__ = ["ArchConfig", "Model", "attention", "common", "config",
-           "get_model", "transformer"]
+           "get_model", "mamba", "ssm", "transformer", "zamba"]

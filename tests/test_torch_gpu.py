@@ -311,3 +311,174 @@ def test_model_kernel_path_grads_on_card(cuda):
         torch.testing.assert_close(grads["kernel"][name],
                                    grads["plain"][name], atol=1e-4,
                                    rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunk scan, attention at head_dim 160, and the SSM models
+# ---------------------------------------------------------------------------
+
+# the four SSD_CASES of tests/test_kernels.py, then full widths with a
+# ragged S (1000 with chunk 512), 2 groups of 4 heads
+SSD_CARD_CASES = [
+    dict(b=2, s=64, h=4, p=16, g=2, n=8, chunk=16),
+    dict(b=1, s=100, h=4, p=8, g=4, n=16, chunk=32),
+    dict(b=2, s=33, h=2, p=8, g=1, n=4, chunk=16),
+    dict(b=1, s=16, h=2, p=4, g=2, n=4, chunk=16),
+    dict(b=1, s=1000, h=8, p=64, g=2, n=128, chunk=512),
+]
+
+
+def _ssd_inputs(dev, case, dtype=torch.float32):
+    b, s, h, p, g, n = (case[k] for k in "bshpgn")
+    x = randn(dev, b, s, h, p, dtype=dtype)
+    dt = torch.from_numpy(rng.uniform(0.01, 0.2, (b, s, h)).astype(
+        np.float32)).to(dev)
+    A = -torch.from_numpy(rng.uniform(0.5, 2.0, (h,)).astype(
+        np.float32)).to(dev)
+    B, C = randn(dev, b, s, g, n, dtype=dtype), randn(dev, b, s, g, n,
+                                                       dtype=dtype)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("case", SSD_CARD_CASES)
+def test_ssd_f32_on_card(cuda, case):
+    """The kernel path of ``covenant_ssd`` against the sequential oracle
+    ``ssd_ref`` at the reference's bound (atol 2e-3), from zeros and from an
+    ``init_state``."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+
+    x, dt, A, B, C = _ssd_inputs(cuda, case)
+    st0 = randn(cuda, case["b"], case["h"], case["p"], case["n"])
+    for init in (None, st0):
+        before = ssd_chunk_scan.launches
+        got, st = ops.covenant_ssd(x, dt, A, B, C, chunk=case["chunk"],
+                                   init_state=init, return_state=True)
+        torch.cuda.synchronize()
+        assert ssd_chunk_scan.launches == before + 1
+        want, wst = ops.ssd_ref(x, dt, A, B, C, init_state=init,
+                                return_state=True)
+        torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+        torch.testing.assert_close(st, wst, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("case", SSD_CARD_CASES)
+def test_ssd_bf16_on_card(cuda, case):
+    """bf16 x, B, C (dt f32): the kernel's chunk-local outputs against the
+    plain version's on the same inputs, both summed in f32 (2e-3); y, which
+    both round to bf16, within one bf16 ulp (2^-7 relative) of the
+    plain y."""
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_local,
+                                              ssd_chunk_local_plain,
+                                              ssd_chunk_scan,
+                                              ssd_chunk_scan_plain)
+
+    b, h, g, ck = case["b"], case["h"], case["g"], case["chunk"]
+    x, dt, A, B, C = _ssd_inputs(cuda, case, torch.bfloat16)
+    s = -(-case["s"] // ck) * ck
+    pad = s - case["s"]
+    xf = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)).transpose(
+        1, 2).reshape(b * h, s, -1)
+    dtf = torch.nn.functional.pad(dt, (0, 0, 0, pad)).transpose(
+        1, 2).reshape(b * h, s)
+    bf, cf = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)).transpose(
+        1, 2).reshape(b * g, s, -1) for t in (B, C))
+    af = A.repeat(b)
+    got = ssd_chunk_local(xf, dtf, af, bf, cf, chunk=ck)
+    want = ssd_chunk_local_plain(xf, dtf, af, bf, cf, chunk=ck)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=2e-3, rtol=0)
+    y, st = ssd_chunk_scan(xf, dtf, af, bf, cf, chunk=ck)
+    wy, wst = ssd_chunk_scan_plain(xf, dtf, af, bf, cf, chunk=ck)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), wy.float(), atol=2e-3,
+                               rtol=2 ** -7)
+    torch.testing.assert_close(st, wst, atol=2e-3, rtol=0)
+
+
+def test_ssd_init_state_continuation_on_card(cuda):
+    """Splitting a sequence across two calls == one call (decode
+    contract), as ``tests/test_kernels.py`` holds it."""
+    case = dict(b=1, s=1024, h=8, p=64, g=2, n=128, chunk=512)
+    x, dt, A, B, C = _ssd_inputs(cuda, case)
+    y_full, st_full = ops.covenant_ssd(x, dt, A, B, C, chunk=512,
+                                       return_state=True)
+    half = 600
+    y1, st1 = ops.covenant_ssd(x[:, :half], dt[:, :half], A, B[:, :half],
+                               C[:, :half], chunk=512, return_state=True)
+    y2, st2 = ops.covenant_ssd(x[:, half:], dt[:, half:], A, B[:, half:],
+                               C[:, half:], chunk=512, init_state=st1,
+                               return_state=True)
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y_full, atol=2e-3,
+                               rtol=0)
+    torch.testing.assert_close(st2, st_full, atol=2e-3, rtol=0)
+
+
+def test_ssd_needs_no_grad_on_card(cuda):
+    """The kernel has no backward: an input that needs a gradient raises
+    rather than returning a tensor autograd cannot follow."""
+    x, dt, A, B, C = _ssd_inputs(cuda, SSD_CARD_CASES[0])
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.covenant_ssd(x.requires_grad_(True), dt, A, B, C, chunk=16)
+    with torch.no_grad():
+        ops.covenant_ssd(x, dt, A, B, C, chunk=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dim_160_on_card(cuda, dtype):
+    """zamba2's shared block: 32 heads of head_dim 160, tiler blocks."""
+    q = randn(cuda, 1, 32, 300, 160, dtype=dtype)
+    k = randn(cuda, 1, 32, 300, 160, dtype=dtype)
+    v = randn(cuda, 1, 32, 300, 160, dtype=dtype)
+    got = ops.covenant_attention(q, k, v, causal=True)
+    want = ops.attention_ref(q, k, v, causal=True)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_head_dim_160_on_card(cuda, dtype):
+    from repro_torch.kernels.tiling import decode_block_kv
+
+    b, h, s, d = 4, 32, 2080, 160
+    q = randn(cuda, b, h, d, dtype=dtype)
+    k, v = randn(cuda, b, h, s, d, dtype=dtype), randn(cuda, b, h, s, d,
+                                                       dtype=dtype)
+    kv_len = torch.tensor([1, 700, 2049, 2080], device=cuda)
+    got = ops.covenant_decode_attention(
+        q, k, v, kv_len, block_kv=decode_block_kv(b * h, s, d, 1))
+    want = ops.attention_ref(q[:, :, None, :], k, v, causal=False,
+                             kv_len=kv_len)[:, :, 0, :]
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_models_kernel_path_on_card(cuda, arch):
+    """SMOKE mamba2 and zamba2 (f32) on the card: the kernel path's prefill
+    and 4 decode steps against the plain path's, at the model bound of
+    ``tests/test_torch_models.py`` (atol 1e-4, rtol 1e-4); the SSD kernel
+    runs once per mamba layer of the prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan
+    from repro_torch.models import get_model
+
+    cfg = get_config(arch, smoke=True)
+    prompt = torch.from_numpy(rng.integers(2, cfg.vocab, (2, 21))).to(cuda)
+    feed = torch.from_numpy(rng.integers(2, cfg.vocab, (4, 2))).to(cuda)
+    logits = {}
+    for attn in ("kernel", "plain"):
+        model = get_model(cfg, device=cuda, attn=attn)
+        params = model.init_params(0)
+        before = ssd_chunk_scan.launches
+        cache = model.init_cache(2, 32)
+        out, cache = model.prefill(params, {"tokens": prompt}, cache)
+        steps = [out]
+        for t in range(4):
+            out, cache = model.decode_step(params, feed[t], cache)
+            steps.append(out)
+        torch.cuda.synchronize()
+        launched = ssd_chunk_scan.launches - before
+        assert launched == (cfg.n_layers if attn == "kernel" else 0)
+        logits[attn] = steps
+    for a, b in zip(logits["kernel"], logits["plain"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
