@@ -3,7 +3,10 @@
 ``python3 chip_smoke.py`` from the repository root:
 
 1. builds the Hopper kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, all at once) and prints the card's name and power limit;
+   source, all at once), prints each library's tensor-core instructions
+   (``HGMMA``, ``HMMA``, ``IMMA`` in its SASS; the GEMM must hold
+   ``HGMMA`` and the flash forward ``HMMA`` or ``HGMMA``) and the card's
+   name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, in the
    working dtype, at the shapes the main paths give it, and times kernel,
    plain version and one PyTorch library call with CUDA events;
@@ -66,8 +69,8 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunk_local, ssd_chunk_local_plain, ssd_chunk_scan,
     ssd_chunk_scan_plain)
 from repro_torch.kernels.tiling import (  # noqa: E402
-    attention_blocks, attention_bwd_blocks, decode_block_kv, gemm_blocks,
-    ssd_blocks)
+    attention_blocks, attention_bwd_blocks, attention_mma_blocks,
+    decode_block_kv, gemm_blocks, ssd_blocks)
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.layers import lm_layer_gemms, mean_ms  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
@@ -132,6 +135,9 @@ KERNELS = {
 }
 KERNEL_FNS = (matmul, flash_attention, flash_decode, flash_attention_fwd_lse,
               flash_attention_bwd, ssd_chunk_scan)
+# the tensor-core instructions each redesigned source must hold: the bf16
+# GEMM runs wgmma (HGMMA), the bf16 flash forward mma.sync (HMMA)
+TENSOR_CORE_OPS = {"matmul": ("HGMMA",), "flash_attention": ("HMMA", "HGMMA")}
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -214,7 +220,8 @@ def check_gemm(rec: Record, dev, gen, m: int, n: int, k: int,
             "i8": H100["peak_i8_ops"]}[in_dt]
     b_ms, b_by = bound(2.0 * m * n * k, peak,
                        (m * k + k * n) * a.element_size() + m * n * 4)
-    blocks = "x".join(map(str, gemm_blocks(m, n, k, in_dtype=in_dt)))
+    blocks = "x".join(map(str, gemm_blocks(m, n, k, in_dtype=in_dt,
+                                           wgmma=in_dt == "bf16")))
     rec.add("matmul", f"{label} {m}x{n}x{k} {in_dt} b{blocks}", err=err,
             ok=ok, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=library_ms, main_path=main_path)
@@ -240,7 +247,7 @@ def check_attention(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=PROMPT,
     pairs = b * hq * s * (s + 1) / 2            # visible (q, k) pairs
     nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
     b_ms, b_by = bound(4.0 * pairs * d, H100["peak_bf16_flops"], nbytes)
-    bq, bkv = attention_blocks(s, s, d, heads=b * hq)
+    bq, bkv = attention_mma_blocks(s, s, d, heads=b * hq)
     rec.add("flash_attention",
             f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal b{bq}x{bkv}", err=err,
             ok=err <= ATTN_BF16_ATOL, tol=ATTN_BF16_ATOL, ms=ms,
@@ -303,7 +310,9 @@ def _pairs(b, hq, s, causal, window) -> float:
 def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
                   window, main_path) -> None:
     q, k, v, _ = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype)
-    bq, bkv = attention_blocks(s, s, d, heads=b * hq)
+    pick = attention_mma_blocks if dtype == torch.bfloat16 \
+        else attention_blocks
+    bq, bkv = pick(s, s, d, heads=b * hq)
     run = lambda: flash_attention_fwd_lse(  # noqa: E731
         q, k, v, window=window, block_q=bq, block_kv=bkv)
     out, lse = run()
@@ -923,13 +932,20 @@ def main() -> None:
     smi = nvidia_smi_line()
     print(f"[build] {len(_build.SOURCES)} kernels from src/repro_torch/csrc "
           f"in {build_s:.1f}s", flush=True)
-    for name, log in _build.build_logs.items():
+    for name in _build.SOURCES:
+        log = _build.build_logs.get(name, "")
         regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
                 if "registers" in ln]
         spills = sum(" 0 bytes spill stores" not in ln
                      for ln in log.splitlines() if "spill stores" in ln)
+        sass = _build.sass_counts(name)
         print(f"[build] {name}: {len(regs)} instantiations, "
-              f"{spills} with spills", flush=True)
+              f"{spills} with spills; tensor-core instructions in SASS "
+              f"{sass}", flush=True)
+        want = TENSOR_CORE_OPS.get(name, ())
+        if want and not any(sass[op] for op in want):
+            raise AssertionError(f"{name}: no {' or '.join(want)} in its "
+                                 f"SASS: not on the tensor cores")
     print(smi, flush=True)
     print(f"[device] {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}, torch {torch.__version__}, "

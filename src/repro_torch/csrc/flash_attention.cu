@@ -6,37 +6,52 @@
 // `q_offset` of q row 0 in kv positions and the true `seq_k`; and the same
 // `l == 0` guard, so a fully masked row comes out as zeros.
 //
-// The same template, given an `lse` pointer, also replaces
-// flash_attention_fwd_lse (_fa_fwd_lse_kernel): it writes each row's f32
+// The same templates, given an `lse` pointer, also replace
+// flash_attention_fwd_lse (_fa_fwd_lse_kernel): they write each row's f32
 // log-sum-exp m + log(l) (l == 0 read as 1, so a fully masked row has
 // lse = -1e30), the residual of the backward in flash_attention_bwd.cu.
-// The entry points covenant_flash_attention_fwd_lse_{bf16,f32} take it.
 //
 // One thread block per (q block, batch*head).  On the TPU the kv walk is the
 // sequential third grid axis and the running state lives in VMEM scratch
 // between grid steps; Hopper blocks run in no order, so here the kv walk is
-// a loop inside the block and the state stays in the block (row stats in
-// shared memory, the accumulator in registers).  Grouped-query attention
-// indexes the kv head as head / group instead of repeating k and v.  Ragged
-// q and kv edges are masked here, so nothing is padded.  Blocks that the
-// causal or window mask hides completely are skipped: they would change
-// nothing.
-//
-// Block geometry (block_q, block_kv) comes from the Covenant tiler
-// (kernels/tiling.py attention_blocks), bounded so that the f32 q, k, v
-// tiles and the (block_q, block_kv) logits fit shared memory.
+// a loop inside the block and the state stays in the block.  Grouped-query
+// attention indexes the kv head as head / group instead of repeating k and
+// v.  Ragged q and kv edges are masked here, so nothing is padded.  Blocks
+// that the causal or window mask hides completely are skipped: they would
+// change nothing.
 //
 // Bound on the H100: 4*B*Hq*Sq*Sk*D operations (halved by a causal mask)
-// against reading q, k, v once and writing o once; at the qwen3 prefill
-// shape (B=4, Hq=16, Hkv=8, S=512, D=128) that is far above the bf16
-// tensor cores' 295 operations per byte, so the tensor cores bound it.  This
-// first version computes both products on the SIMT lanes in f32 with a
-// register micro-tile per thread; wgmma for QK^T and PV is later work.
+// against reading q, k, v once and writing o once; at zamba2's prefill
+// shape (B=4, H=32, S=2048, D=160) that is far above the bf16 tensor cores'
+// 295 operations per byte, so the tensor cores bound it, and at qwen3's
+// (S=512, D=128) the operations and the bytes are within a factor of two.
+//
+// bf16 runs on the tensor cores (fa_mma_kernel), FA2-style: 4 or 8 warps
+// each own 16 q rows of the block; the q fragments are loaded once by
+// ldmatrix and held in registers; S = Q K^T runs as mma.sync m16n8k16 bf16
+// -> f32 and is scaled in f32 after the product, as the reference does; the
+// row max and sum reduce over the 4 lanes that share a row; P is rounded to
+// bf16 in registers and fed as the A operand of P V, with V read by
+// ldmatrix.trans; the O accumulator stays in f32 registers.  K and V tiles
+// are staged in bf16 by cp.async in 16-byte vectors, double-buffered, each
+// row padded by 8 elements so ldmatrix's 8 row reads fall on distinct banks.
+// Rounding P to bf16 adds at most 2^-9 of each term of P V: with unit-normal
+// v, about 0.01 of extra error, inside the bf16 bound of 2e-2.  Measured on
+// the H100 against the plain version (chip_smoke.py, unit-normal q, k, v):
+// worst 1.56e-2 at D128 and at D160, one bf16 ulp of an output in [2, 4),
+// where the SIMT kernel with f32 P gave 3.9e-3 and 7.8e-3.  Block sizes
+// come from the tiler (tiling.attention_mma_blocks); head dims 64, 128 and
+// 160 are built.  wgmma for attention is later work.
+//
+// f32 stays on the SIMT lanes (fa_fwd_kernel), in true f32: q, k, v and the
+// logits in f32 shared memory, both products with a register micro-tile
+// per thread, block sizes from tiling.attention_blocks.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = success).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -44,9 +59,7 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 struct FaParams {
   int sq, sk, d, group;
@@ -313,6 +326,321 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return launch_tm<T, 8>(q, k, v, o, lse, bh, p, max_tn, smem_bytes, s);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kPad = 8;                 // bf16 elements of padding a row
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct FaMmaParams {
+  int sq, sk, group;
+  int causal, has_window, window, q_offset;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes from global to shared; zeros where `valid` is false
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 -> f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ bool visible_mma(const FaMmaParams& p, int qpos,
+                                            int kpos) {
+  bool ok = kpos < p.sk;
+  if (p.causal) ok = ok && (kpos <= qpos);
+  if (p.has_window) ok = ok && (kpos > qpos - p.window);
+  return ok;
+}
+
+// D: head dim; BKV: kv rows a step; NW: warps, 16 q rows each.  Lane l of
+// warp w holds rows 16 w + l / 4 and 16 w + l / 4 + 8 of the block, columns
+// 8 j + 2 (l % 4) and + 1 of each 8-column tile j (the mma C layout).
+template <int D, int BKV, int NW>
+__global__ void __launch_bounds__(NW * 32)
+fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+              FaMmaParams p) {
+  constexpr int BQ = NW * 16;
+  constexpr int LD = D + kPad;
+  constexpr int CH = D / 8;       // 16-byte vectors a row
+  constexpr int KT = D / 16;      // k steps of Q K^T
+  constexpr int NT = BKV / 8;     // 8-column tiles of S
+  constexpr int DT = D / 8;       // 8-column tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BQ x LD
+  __nv_bfloat16* ks = qs + BQ * LD;                  // 2 x BKV x LD
+  __nv_bfloat16* vs = ks + 2 * BKV * LD;             // 2 x BKV x LD
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int kvh = bh / p.group;
+  const __nv_bfloat16* qg = q + static_cast<size_t>(bh) * p.sq * D;
+  const __nv_bfloat16* kg = k + static_cast<size_t>(kvh) * p.sk * D;
+  const __nv_bfloat16* vg = v + static_cast<size_t>(kvh) * p.sk * D;
+  __nv_bfloat16* og = o + static_cast<size_t>(bh) * p.sq * D;
+
+  // the kv range any row of this q block can see
+  const int q_last = min(q0 + BQ, p.sq) - 1;
+  int kv_hi = p.sk;
+  if (p.causal) kv_hi = min(kv_hi, q_last + p.q_offset + 1);
+  int kv_lo = 0;
+  if (p.has_window) kv_lo = max(kv_lo, q0 + p.q_offset - p.window + 1);
+  const int j_begin = kv_lo < kv_hi ? (kv_lo / BKV) * BKV : kv_hi;
+  const int steps = (kv_hi - j_begin + BKV - 1) / BKV;
+
+  for (int i = tid; i < BQ * CH; i += NW * 32) {
+    const int r = i / CH;
+    const int c = i - r * CH;
+    const bool in = q0 + r < p.sq;
+    cp_async16(smem_u32(qs + r * LD + c * 8),
+               qg + (in ? static_cast<size_t>(q0 + r) * D + c * 8 : 0), in);
+  }
+  auto load_kv = [&](int j0, int buf) {
+    for (int i = tid; i < BKV * CH; i += NW * 32) {
+      const int r = i / CH;
+      const int c = i - r * CH;
+      const bool in = j0 + r < p.sk;
+      const size_t off = in ? static_cast<size_t>(j0 + r) * D + c * 8 : 0;
+      const int at = (buf * BKV + r) * LD + c * 8;
+      cp_async16(smem_u32(ks + at), kg + off, in);
+      cp_async16(smem_u32(vs + at), vg + off, in);
+    }
+  };
+  if (steps > 0) load_kv(j_begin, 0);
+  cp_async_commit();
+
+  // q fragments, once: A operand (16 x 16) of each k step
+  uint32_t qa[KT][4];
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+    ldmatrix_x4(qa[kk], smem_u32(qs + (warp * 16 + (lane & 15)) * LD +
+                                 kk * 16 + (lane >> 4) * 8));
+
+  float oacc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  const int qpos[2] = {row0 + p.q_offset, row0 + 8 + p.q_offset};
+
+  for (int it = 0; it < steps; ++it) {
+    const int j0 = j_begin + it * BKV;
+    const int buf = it & 1;
+    if (it + 1 < steps) load_kv(j0 + BKV, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step's k and v have landed
+    __syncthreads();
+    const __nv_bfloat16* kb = ks + buf * BKV * LD;
+    const __nv_bfloat16* vb = vs + buf * BKV * LD;
+
+    // S = Q K^T: K rows are B's columns, read without transpose
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, smem_u32(kb + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
+                                kk * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
+      }
+    }
+
+    // scale in f32, mask, online softmax over the 4 lanes of each row
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = j0 + j * 8 + 2 * (lane & 3) + (e & 1);
+        const float x = visible_mma(p, qpos[e >> 1], kpos) ? s[j][e] * p.scale
+                                                           : kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_r[h], mx[h]);
+      alpha[h] = exp2f((m_r[h] - m_new) * kLog2e);
+      m_r[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = j0 + j * 8 + 2 * (lane & 3) + (e & 1);
+        const float pe = visible_mma(p, qpos[e >> 1], kpos)
+                             ? exp2f((s[j][e] - m_r[e >> 1]) * kLog2e) : 0.f;
+        s[j][e] = pe;
+        sum[e >> 1] += pe;
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l_r[h] = l_r[h] * alpha[h] + sum[h];
+    }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      oacc[j][0] *= alpha[0];
+      oacc[j][1] *= alpha[0];
+      oacc[j][2] *= alpha[1];
+      oacc[j][3] *= alpha[1];
+    }
+
+    // O += P V: P's C fragments, rounded to bf16, are the A fragments; V
+    // rows are B's k rows, read with transpose
+#pragma unroll
+    for (int kp = 0; kp < BKV / 16; ++kp) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kp][0], s[2 * kp][1]),
+                              pack_bf16(s[2 * kp][2], s[2 * kp][3]),
+                              pack_bf16(s[2 * kp + 1][0], s[2 * kp + 1][1]),
+                              pack_bf16(s[2 * kp + 1][2], s[2 * kp + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, smem_u32(vb + (kp * 16 + ((lane >> 3) & 1) * 8 +
+                                            (lane & 7)) * LD +
+                                      dp * 16 + (lane >> 4) * 8));
+        mma_bf16(oacc[2 * dp], pa, b[0], b[1]);
+        mma_bf16(oacc[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with buf before it is reloaded
+  }
+  cp_async_wait<0>();
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = 1.f / (l_r[h] == 0.f ? 1.f : l_r[h]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    if (r >= p.sq) continue;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(og + static_cast<size_t>(r) * D + j * 8 +
+                                         2 * (lane & 3)) =
+          __floats2bfloat162_rn(oacc[j][2 * h] * inv[h],
+                                oacc[j][2 * h + 1] * inv[h]);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<size_t>(bh) * p.sq + r] =
+          m_r[h] + logf(l_r[h] == 0.f ? 1.f : l_r[h]);
+  }
+}
+
+template <int D, int BKV, int NW>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, const FaMmaParams& p, cudaStream_t stream) {
+  constexpr int smem = (NW * 16 + 4 * BKV) * (D + kPad) * 2;
+  auto kernel = fa_mma_kernel<D, BKV, NW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((p.sq + NW * 16 - 1) / (NW * 16), bh);
+  kernel<<<grid, NW * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int BKV>
+int launch_mma_bq(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int bh, int bq, const FaMmaParams& p,
+                  cudaStream_t s) {
+  if (bq == 64) return launch_mma<D, BKV, 4>(q, k, v, o, lse, bh, p, s);
+  if (bq == 128) return launch_mma<D, BKV, 8>(q, k, v, o, lse, bh, p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch_mma_bkv(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int bh, int bq, int bkv, const FaMmaParams& p,
+                   cudaStream_t s) {
+  if (bkv == 32) return launch_mma_bq<D, 32>(q, k, v, o, lse, bh, bq, p, s);
+  if (bkv == 64) return launch_mma_bq<D, 64>(q, k, v, o, lse, bh, bq, p, s);
+  if (bkv == 128) return launch_mma_bq<D, 128>(q, k, v, o, lse, bh, bq, p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int d, int bq, int bkv,
+                const FaMmaParams& p, void* stream) {
+  if (p.group < 1 || bh % p.group != 0 ||
+      reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(v) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64) return launch_mma_bkv<64>(q, k, v, o, lse, bh, bq, bkv, p, s);
+  if (d == 128) return launch_mma_bkv<128>(q, k, v, o, lse, bh, bq, bkv, p, s);
+  if (d == 160) return launch_mma_bkv<160>(q, k, v, o, lse, bh, bq, bkv, p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 #define FA_PARAMS                                                              \
@@ -342,10 +670,18 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
                      stream);                                                  \
   }
 
-FA_ENTRY(covenant_flash_attention_bf16, __nv_bfloat16)
 FA_ENTRY(covenant_flash_attention_f32, float)
-FA_LSE_ENTRY(covenant_flash_attention_fwd_lse_bf16, __nv_bfloat16)
 FA_LSE_ENTRY(covenant_flash_attention_fwd_lse_f32, float)
+
+// bf16 on the tensor cores; `lse` may be null (the forward without it)
+extern "C" int covenant_flash_attention_mma(
+    const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+    int sq, int sk, int d, int group, int bq, int bkv, int causal,
+    int has_window, int window, int q_offset, float scale, void* stream) {
+  FaMmaParams p{sq, sk, group, causal, has_window, window, q_offset, scale};
+  return launch_bf16(q, k, v, o, static_cast<float*>(lse), bh, d, bq, bkv, p,
+                     stream);
+}
 
 extern "C" const char* covenant_flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

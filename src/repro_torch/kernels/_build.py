@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,15 +32,17 @@ _bound: dict[tuple[str, str], object] = {}
 build_logs: dict[str, str] = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _tool(name: str) -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``) on the PATH or in
+    the toolkit's default place."""
+    found = shutil.which(name)
     if found:
         return found
-    default = "/usr/local/cuda/bin/nvcc"
+    default = f"/usr/local/cuda/bin/{name}"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the Hopper kernels build only where "
-                       "the CUDA toolkit is installed")
+    raise RuntimeError(f"{name} not found: the Hopper kernels build only "
+                       f"where the CUDA toolkit is installed")
 
 
 def _target(name: str) -> Path:
@@ -53,7 +56,7 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
@@ -83,6 +86,17 @@ def build_all() -> float:
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+def sass_counts(name: str) -> dict[str, int]:
+    """How many tensor-core instructions the built library of
+    ``csrc/<name>.cu`` holds, by opcode: ``HGMMA`` (wgmma), ``HMMA``
+    (mma.sync on floats) and ``IMMA`` (mma.sync on integers), read from
+    ``cuobjdump -sass``."""
+    out = subprocess.run([_tool("cuobjdump"), "-sass", str(_target(name))],
+                         capture_output=True, text=True, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\.", out))
+            for op in ("HGMMA", "HMMA", "IMMA")}
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -122,4 +136,4 @@ def bind(name: str, symbol: str, argtypes: list):
 
 
 __all__ = ["BUILD_DIR", "SOURCES", "bind", "build_all", "build_logs",
-           "check", "library"]
+           "check", "library", "sass_counts"]

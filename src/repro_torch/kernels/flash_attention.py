@@ -3,7 +3,8 @@
 ``flash_attention_bwd``.
 
 Each wrapper launches its ``csrc`` kernel for CUDA tensors
-(``flash_attention.cu`` holds the forward with and without the LSE output,
+(``flash_attention.cu`` holds the forward with and without the LSE output:
+bf16 on the tensor cores, f32 on the SIMT lanes;
 ``flash_attention_bwd.cu`` the backward's dq and dkv passes,
 ``flash_decode.cu`` the decode); CPU tensors take the ``*_plain`` version
 beside it, which computes the same function in plain PyTorch.
@@ -28,7 +29,9 @@ import torch
 
 from . import _build
 from .matmul import thread_tile
-from .tiling import flash_bwd_smem_bytes, flash_smem_bytes
+from .tiling import (FLASH_MMA_BLOCK_KV, FLASH_MMA_BLOCK_Q,
+                     FLASH_MMA_HEAD_DIMS, flash_bwd_smem_bytes,
+                     flash_smem_bytes)
 
 NEG_INF = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -139,18 +142,43 @@ def _forward(q, k, v, *, causal, window, scale, block_q, block_kv, q_offset,
              with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch ``csrc/flash_attention.cu`` on checked CUDA tensors; with
     ``with_lse`` through its LSE entry point.  ``window=None`` is no
-    window.  Returns (out, lse (BH, Sq, 1) f32 or None)."""
+    window.  bf16 runs the tensor-core kernel, which takes head dims
+    ``FLASH_MMA_HEAD_DIMS``, block_q in ``FLASH_MMA_BLOCK_Q`` and block_kv in
+    ``FLASH_MMA_BLOCK_KV`` (``tiling.attention_mma_blocks``) and raises on
+    others.  Returns (out, lse (BH, Sq, 1) f32 or None)."""
     bh, sq, d = q.shape
     bkv_rows, sk, _ = k.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     scale = scale if scale is not None else d ** -0.5
     q_offset = (sk - sq) if q_offset is None else q_offset
-    s_tile = thread_tile(block_q, block_kv, max_tn=8)
-    o_tile = thread_tile(block_q, d, max_tn=8)
-    smem = flash_smem_bytes(block_q, block_kv, d)
     out = torch.empty_like(q)
     lse = (torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if q.dtype == torch.bfloat16:
+        if d not in FLASH_MMA_HEAD_DIMS or block_q not in FLASH_MMA_BLOCK_Q \
+                or block_kv not in FLASH_MMA_BLOCK_KV:
+            raise ValueError(
+                f"flash_attention: the bf16 kernel takes head dims "
+                f"{FLASH_MMA_HEAD_DIMS}, block_q {FLASH_MMA_BLOCK_Q} and "
+                f"block_kv {FLASH_MMA_BLOCK_KV}; got {d}, {block_q}, "
+                f"{block_kv}")
+        # a view may start off the 16 bytes cp.async reads
+        q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
+        fn = _build.bind("flash_attention", "covenant_flash_attention_mma",
+                         [_P] * 5 + [_I] * 11 + [_F, _P])
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     None if lse is None else lse.data_ptr(), bh, sq, sk, d,
+                     bh // bkv_rows, block_q, block_kv, int(causal),
+                     int(window is not None),
+                     0 if window is None else int(window), q_offset,
+                     float(scale), stream)
+        _build.check("flash_attention", err)
+        return out, lse
+    s_tile = thread_tile(block_q, block_kv, max_tn=8)
+    o_tile = thread_tile(block_q, d, max_tn=8)
+    smem = flash_smem_bytes(block_q, block_kv, d)
     symbol = "fwd_lse_" if with_lse else ""
     fn = _build.bind("flash_attention",
                      f"covenant_flash_attention_{symbol}{_DTYPES[q.dtype]}",

@@ -16,7 +16,8 @@ from .flash_attention import FlashAttention
 from .flash_attention import flash_attention as _fa, flash_decode as _fd
 from .matmul import matmul as _mm
 from .ssd_scan import ssd_chunk_scan as _ssd
-from .tiling import attention_blocks, attention_bwd_blocks, gemm_blocks
+from .tiling import (attention_blocks, attention_bwd_blocks,
+                     attention_mma_blocks, gemm_blocks)
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -33,16 +34,24 @@ def covenant_matmul(a: torch.Tensor, b: torch.Tensor, *,
                     out_dtype: torch.dtype | None = None,
                     blocks: tuple[int, int, int] | None = None
                     ) -> torch.Tensor:
-    """GEMM with Covenant-tiled blocks; pads to block multiples."""
+    """GEMM with Covenant-tiled blocks.  The bf16 tensor-core kernel on a
+    CUDA tensor takes ragged edges itself, so nothing is padded to the
+    blocks: only K and N are, to multiples of 8 (TMA's row stride), where
+    they are not already.  Every other case pads to block multiples."""
     m, k = a.shape
     _, n = b.shape
     is_int = not a.dtype.is_floating_point
     out_dtype = out_dtype or (torch.int32 if is_int else torch.float32)
+    in_dt = "i8" if is_int else ("f32" if a.dtype == torch.float32
+                                 else "bf16")
     if blocks is None:
-        in_dt = "i8" if is_int else ("f32" if a.dtype == torch.float32
-                                     else "bf16")
-        blocks = gemm_blocks(m, n, k, in_dtype=in_dt)
+        blocks = gemm_blocks(m, n, k, in_dtype=in_dt, wgmma=in_dt == "bf16")
     bm, bn, bk = blocks
+    if in_dt == "bf16" and a.device.type == "cuda":
+        ap, bp = _pad_to(a, 1, 8), _pad_to(_pad_to(b, 0, 8), 1, 8)
+        out = _mm(ap, bp, block_m=bm, block_n=bn, block_k=bk,
+                  out_dtype=out_dtype)
+        return out if out.shape[1] == n else out[:, :n]
     ap = _pad_to(_pad_to(a, 0, bm), 1, bk)
     bp = _pad_to(_pad_to(b, 0, bk), 1, bn)
     out = _mm(ap, bp, block_m=bm, block_n=bn, block_k=bk, out_dtype=out_dtype)
@@ -61,14 +70,20 @@ def covenant_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     needs a gradient of q, k or v, the call goes through ``FlashAttention``
     (the LSE forward, then the flash backward, with the tiler's backward
     blocks); otherwise through the forward-only kernel.  Both compute the
-    same output, with the same masks."""
+    same output, with the same masks.  bf16 takes the tensor-core forward's
+    blocks (``attention_mma_blocks``: block_q a whole number of 64-row
+    tiles, even past a short Sq, whose edge the kernel masks), f32 the SIMT
+    forward's (``attention_blocks``, block_q cut to Sq)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    mma = q.dtype == torch.bfloat16
     if blocks is None:
-        bq, bkv = attention_blocks(sq, sk, d, heads=b * hq)
+        pick = attention_mma_blocks if mma else attention_blocks
+        bq, bkv = pick(sq, sk, d, heads=b * hq)
     else:
         bq, bkv = blocks
-    bq = min(bq, sq)
+    if not mma:
+        bq = min(bq, sq)
     qf = q.reshape(b * hq, sq, d)
     kf, vf = k.reshape(b * hkv, sk, d), v.reshape(b * hkv, sk, d)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

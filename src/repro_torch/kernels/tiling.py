@@ -22,6 +22,15 @@ larger working set; ``decode_block_kv`` is its kv block for the decode
 kernel, whose split kv walk is what fills the card when batch x kv heads
 is small.  ``ssd_blocks`` sizes the SSD chunk kernel's row and column
 blocks the same way, through the equivalent C B^T GEMM of one chunk.
+
+The bf16 GEMM and the bf16 flash forward run on the tensor cores, and their
+kernels add rules of their own beside these, which the other kernels do not
+inherit: ``gemm_blocks(..., wgmma=True)`` keeps only tilings the wgmma GEMM
+can run (``wgmma_fits``: wgmma's N sizes, at most four 64-row consumer
+warpgroups, a stage ring of at least two stages, ``gemm_stages``), and
+``attention_mma_blocks`` fits the tiler's flash tiling to the mma.sync
+forward's 16-row warps, register fragments and bf16 shared memory
+(``flash_mma_smem_bytes``).
 """
 from __future__ import annotations
 
@@ -61,6 +70,66 @@ def _budgets() -> tuple[int, int]:
     return acg.memory("SMEM").capacity_bytes, acg.memory("RF").capacity_bytes
 
 
+# the wgmma GEMM (csrc/matmul.cu, bf16): the instruction N sizes it is
+# built for, its consumer warpgroups of 64 rows each, and its TMA stage ring
+# of k slabs, each a whole number of 64-element (128-byte) swizzle rows of A
+WGMMA_N = (16, 32, 48, 64, 96, 128, 192, 256)
+WGMMA_MAX_WARPGROUPS = 4
+GEMM_STAGE_K_UNIT = 64
+GEMM_MAX_STAGE_K = 128
+GEMM_MAX_STAGES = 8
+# shared memory a block keeps beside the ring: 1024 bytes to align the ring
+# to the 128-byte swizzle's 1024-byte atom, two mbarriers a stage, and the
+# 1 KB the hardware reserves for each block
+GEMM_SMEM_RESERVE = 1024 + 16 * GEMM_MAX_STAGES + 1024
+
+
+def wgmma_rows(bm: int) -> int:
+    """Rows of A a block stages and multiplies: whole 64-row warpgroup
+    slabs (TMA fills the rows past M with zeros)."""
+    return WARPGROUP_M * math.ceil(bm / WARPGROUP_M)
+
+
+def gemm_stage_bytes(bm: int, bn: int, stage_k: int) -> int:
+    """One stage of the ring: the (wgmma_rows(bm), stage_k) A slab and the
+    (stage_k, bn) B slab, in bf16."""
+    return 2 * stage_k * (wgmma_rows(bm) + bn)
+
+
+def gemm_stages(bm: int, bn: int, bk: int) -> tuple[int, int]:
+    """(stage_k, stages): the wgmma GEMM's ring for the tiler's blocks.  A
+    stage is a k slab of the tiler's ``bk`` rounded to whole 64-element
+    swizzle rows and cut to at most 128.  Where two such stages fit half
+    of the SM's shared memory, the ring takes that half, so two blocks
+    share an SM and one's first loads and stores overlap the other's
+    products; otherwise it takes all of it, its slabs halved until two
+    stages fit.  As many stages as fit the budget, at most 8."""
+    smem_b, _ = _budgets()
+    half = smem_b // 2 - GEMM_SMEM_RESERVE
+    s = min(_round_up(bk, GEMM_STAGE_K_UNIT), GEMM_MAX_STAGE_K)
+    if half // gemm_stage_bytes(bm, bn, s) >= 2:
+        budget = half
+    else:
+        budget = smem_b - GEMM_SMEM_RESERVE
+        while (s > GEMM_STAGE_K_UNIT
+               and budget // gemm_stage_bytes(bm, bn, s) < 2):
+            s = _round_up(s // 2, GEMM_STAGE_K_UNIT)
+    return s, min(GEMM_MAX_STAGES, budget // gemm_stage_bytes(bm, bn, s))
+
+
+def wgmma_fits(bm: int, bn: int, bk: int) -> bool:
+    """The wgmma GEMM can run these blocks: ``bn`` is an instruction N it is
+    built for (wgmma's n <= 256), at most four consumer warpgroups own the
+    64-row slabs of ``bm``, their (64, bn) f32 accumulators together fit
+    the RF node (the kernel is built for no larger tile: a thread would have
+    too few registers), and at least two stages fit shared memory."""
+    _, rf_b = _budgets()
+    return (bn in WGMMA_N
+            and math.ceil(bm / WARPGROUP_M) <= WGMMA_MAX_WARPGROUPS
+            and wgmma_rows(bm) * bn * 4 <= rf_b
+            and gemm_stages(bm, bn, bk)[1] >= 2)
+
+
 def gemm_fits(bm: int, bn: int, bk: int, in_dtype: str = "bf16") -> bool:
     """The (a, b, acc) working set fits SMEM and the accumulator fits RF."""
     smem_b, rf_b = _budgets()
@@ -71,10 +140,12 @@ def gemm_fits(bm: int, bn: int, bk: int, in_dtype: str = "bf16") -> bool:
 
 @functools.lru_cache(maxsize=512)
 def gemm_blocks(m: int, n: int, k: int, in_dtype: str = "bf16",
-                grid_batch: int = 1) -> tuple[int, int, int]:
+                grid_batch: int = 1, wgmma: bool = False
+                ) -> tuple[int, int, int]:
     """(block_m, block_n, block_k) for an (m, n, k) GEMM, chosen by the
     Covenant tiler against the ``h100`` ACG.  ``grid_batch`` GEMMs of this
-    shape share the launch grid (heads of an attention)."""
+    shape share the launch grid (heads of an attention).  ``wgmma`` keeps
+    only tilings the bf16 tensor-core GEMM can run (``wgmma_fits``)."""
     acg = h100_acg()
     cdlt = library.gemm(m, n, k, in_dtype=in_dtype,
                         acc_dtype=_acc_dtype(in_dtype),
@@ -91,7 +162,8 @@ def gemm_blocks(m: int, n: int, k: int, in_dtype: str = "bf16",
     best, best_key = None, None
     for t in cands:
         blocks = _hopper_blocks(t, m, n, k, k_unit)
-        if not gemm_fits(*blocks, in_dtype):
+        if not gemm_fits(*blocks, in_dtype) or (wgmma
+                                                 and not wgmma_fits(*blocks)):
             continue
         cost = scheduler.estimate_tiling_cost(cdlt, acg, plans, t)
         key = (_align_score(t, dims, k_unit),
@@ -132,6 +204,59 @@ def flash_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
     floats = (block_q * (d + 1) + block_kv * (d + 1) + block_kv * d
               + block_q * (block_kv + 1) + 3 * block_q)
     return 4 * floats
+
+
+# the bf16 tensor-core flash forward (csrc/flash_attention.cu): 16 q rows a
+# warp, 4 or 8 warps; the kv tiles, head dims and fragment registers it is
+# built for; K and V rows padded by 8 bf16 so ldmatrix is free of bank
+# conflicts
+FLASH_MMA_BLOCK_Q = (64, 128)
+FLASH_MMA_BLOCK_KV = (32, 64, 128)
+FLASH_MMA_HEAD_DIMS = (64, 128, 160)
+FLASH_MMA_PAD = 8
+# of the 255 registers a thread may hold, what the fragments may take; the
+# rest holds addresses, masks and the softmax state
+FLASH_MMA_FRAG_REGS = 192
+
+
+def flash_mma_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
+    """Shared memory of one block of the bf16 tensor-core flash forward:
+    the bf16 q tile and two buffers each of the k and v tiles, every row
+    padded by 8 elements."""
+    return 2 * (block_q + 4 * block_kv) * (head_dim + FLASH_MMA_PAD)
+
+
+def flash_mma_regs(block_kv: int, head_dim: int) -> int:
+    """32-bit registers a thread holds in fragments: the f32 O accumulator
+    (16 x d a warp), the bf16 q fragments, the f32 scores (16 x block_kv)
+    and their bf16 copy, the A operand of P V."""
+    return head_dim // 2 + head_dim // 4 + block_kv // 2 + block_kv // 4
+
+
+def attention_mma_blocks(seq_q: int, seq_k: int, head_dim: int,
+                         heads: int = 1) -> tuple[int, int]:
+    """(block_q, block_kv) for the bf16 tensor-core flash forward: the
+    Covenant tiler's flash tiling (``attention_blocks``) fitted to the
+    kernel's rules.  block_q is 64 or 128 (4 or 8 warps of 16 rows; the
+    kernel masks a ragged q edge), block_kv one of 32, 64, 128; then both
+    shrink until the fragments fit ``FLASH_MMA_FRAG_REGS`` and the bf16
+    tiles fit half the SM's shared memory, so two blocks share an SM and
+    one's copies overlap the other's products."""
+    bq, bkv = attention_blocks(seq_q, seq_k, head_dim, heads=heads)
+    bq = FLASH_MMA_BLOCK_Q[-1] if bq >= FLASH_MMA_BLOCK_Q[-1] \
+        else FLASH_MMA_BLOCK_Q[0]
+    bkv = max(v for v in FLASH_MMA_BLOCK_KV
+              if v <= max(bkv, FLASH_MMA_BLOCK_KV[0]))
+    smem_b, _ = _budgets()
+    while (flash_mma_smem_bytes(bq, bkv, head_dim) > smem_b // 2 - 1024
+           or flash_mma_regs(bkv, head_dim) > FLASH_MMA_FRAG_REGS):
+        if bkv > FLASH_MMA_BLOCK_KV[0]:
+            bkv //= 2
+        elif bq > FLASH_MMA_BLOCK_Q[0]:
+            bq //= 2
+        else:
+            break
+    return bq, bkv
 
 
 def attention_blocks(seq_q: int, seq_k: int, head_dim: int,
@@ -237,7 +362,10 @@ def ssd_blocks(chunk: int, state: int, headdim: int,
     return bl, bc
 
 
-__all__ = ["K_UNIT", "N_UNIT", "WARPGROUP_M", "attention_blocks",
-           "attention_bwd_blocks", "decode_block_kv", "flash_bwd_smem_bytes",
-           "flash_smem_bytes", "gemm_blocks", "gemm_fits", "ssd_blocks",
-           "ssd_smem_bytes"]
+__all__ = ["FLASH_MMA_BLOCK_KV", "FLASH_MMA_BLOCK_Q", "FLASH_MMA_HEAD_DIMS",
+           "K_UNIT", "N_UNIT", "WARPGROUP_M", "WGMMA_N", "attention_blocks",
+           "attention_bwd_blocks", "attention_mma_blocks", "decode_block_kv",
+           "flash_bwd_smem_bytes", "flash_mma_regs", "flash_mma_smem_bytes",
+           "flash_smem_bytes", "gemm_blocks", "gemm_fits", "gemm_stage_bytes",
+           "gemm_stages", "ssd_blocks", "ssd_smem_bytes", "wgmma_fits",
+           "wgmma_rows"]

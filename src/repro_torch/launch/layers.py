@@ -75,7 +75,8 @@ def layer_report(cfg, tokens: int, *, device: str | torch.device = "cuda",
                         dtype=torch.float32).to(torch.bfloat16)
         ms = mean_ms(lambda: ops.covenant_matmul(a, b), device, 3)
         total += ms
-        blocks = "x".join(map(str, gemm_blocks(g.tokens, g.n, g.k)))
+        blocks = "x".join(map(str, gemm_blocks(g.tokens, g.n, g.k,
+                                               wgmma=True)))
         shape = f"{g.tokens}x{g.n}x{g.k}"
         lines.append(f"  {g.name:{width}s} {shape:18s} blocks {blocks:12s} "
                      f"{ms:10.4f} ms")

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_fwd_lse,
                                                  flash_attention_plain,
                                                  flash_decode,
                                                  flash_decode_plain)
@@ -482,3 +483,101 @@ def test_ssm_models_kernel_path_on_card(cuda, arch):
         logits[attn] = steps
     for a, b in zip(logits["kernel"], logits["plain"]):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core paths: the bf16 GEMM (TMA + wgmma) and the bf16 flash
+# forward (mma.sync), at the blocks the tiler picks on the main paths
+# ---------------------------------------------------------------------------
+
+# (M, N, K) and the blocks the tiler picks for the main-path GEMM of that
+# block shape, at a size that keeps the check quick: mamba2's decode
+# lm_head (N 50280 ragged to 48), qwen3's decode ffn_out, its train
+# lm_head's and its prefill lm_head's blocks
+GEMM_MAIN_BLOCKS = [
+    ((4, 50280, 2560), (4, 48, 512)),
+    ((4, 1024, 3072), (4, 16, 3072)),
+    ((1024, 8192, 1024), (128, 64, 512)),
+    ((2048, 4096, 1024), (256, 64, 128)),
+]
+
+
+def _gemm_gate(a, b, got, want):
+    """The elementwise bound of ``chip_smoke.check_gemm``: both sums are
+    within K u sum|a_i b_i| of the exact one (u = 2^-24), so they differ by
+    at most 2(K + 1) u |A||B|."""
+    k = a.shape[1]
+    bound = 2 * (k + 1) * 2.0 ** -24 * (a.abs().float() @ b.abs().float())
+    diff = (got - want).abs()
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+
+
+@pytest.mark.parametrize("shape,blocks", GEMM_MAIN_BLOCKS)
+def test_matmul_bf16_main_blocks_on_card(cuda, shape, blocks):
+    m, n, k = shape
+    a = randn(cuda, m, k, dtype=torch.bfloat16)
+    b = randn(cuda, k, n, dtype=torch.bfloat16)
+    before = matmul.launches
+    got = ops.covenant_matmul(a, b, blocks=blocks)
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    _gemm_gate(a, b, got, matmul_plain(a, b))
+
+
+def test_matmul_bf16_ragged_without_padding_on_card(cuda, monkeypatch):
+    """M, N and K all off the block multiples (and K off the stage depth):
+    the kernel masks the edges, so ``ops.covenant_matmul`` pads nothing."""
+    def no_pad(*args, **kwargs):
+        raise AssertionError("covenant_matmul padded a bf16 operand")
+
+    m, n, k = 333, 1000, 520
+    a = randn(cuda, m, k, dtype=torch.bfloat16)
+    b = randn(cuda, k, n, dtype=torch.bfloat16)
+    monkeypatch.setattr(torch.nn.functional, "pad", no_pad)
+    for blocks in ((64, 64, 128), (128, 48, 64), (4, 256, 256)):
+        got = ops.covenant_matmul(a, b, blocks=blocks)
+        torch.cuda.synchronize()
+        assert got.shape == (m, n)
+        _gemm_gate(a, b, got, matmul_plain(a, b))
+
+
+# bf16 forward cases: (Sq, Sk, window).  Sq != Sk puts q row 0 at kv
+# position Sk - Sq; with Sq > Sk the first rows see no key under the causal
+# mask and must come out as zeros with lse -1e30; window 0 is a window of
+# none for flash_attention and no window for the LSE forward
+MMA_FA_CASES = [(70, 130, None), (70, 130, 16), (130, 70, 0), (200, 200, 16)]
+
+
+@pytest.mark.parametrize("sq,sk,window", MMA_FA_CASES)
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("d", [64, 128, 160])
+def test_flash_mma_bf16_on_card(cuda, d, hq, hkv, sq, sk, window):
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_fwd_lse_plain
+
+    q = randn(cuda, hq, sq, d, dtype=torch.bfloat16)
+    k = randn(cuda, hkv, sk, d, dtype=torch.bfloat16)
+    v = randn(cuda, hkv, sk, d, dtype=torch.bfloat16)
+    off = sk - sq
+    want = flash_attention_plain(q, k, v, window=window, q_offset=off)
+    want_o, want_lse = flash_attention_fwd_lse_plain(q, k, v, window=window,
+                                                     q_offset=off)
+    for bq, bkv in ((64, 64), (128, 32), (64, 128)):
+        before = (flash_attention.launches, flash_attention_fwd_lse.launches)
+        got = flash_attention(q, k, v, window=window, block_q=bq,
+                              block_kv=bkv, q_offset=off)
+        out, lse = flash_attention_fwd_lse(q, k, v, window=window,
+                                           block_q=bq, block_kv=bkv,
+                                           q_offset=off)
+        torch.cuda.synchronize()
+        assert (flash_attention.launches, flash_attention_fwd_lse.launches) \
+            == (before[0] + 1, before[1] + 1)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=0)
+        torch.testing.assert_close(out.float(), want_o.float(), atol=2e-2,
+                                   rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+        if off < 0:
+            # rows whose q position is below 0 see no key: zeros, -1e30
+            assert bool((out[:, :-off] == 0).all())
+            assert bool((lse[:, :-off] == -1e30).all())

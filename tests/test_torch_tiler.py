@@ -31,6 +31,8 @@ from repro_torch.launch.layers import lm_layer_gemms
 from repro_torch.targets import H100, H100_SPEC
 
 SMEM_MAX = H100["smem_bytes_per_block"]
+# the covenant's RF node: the accumulator budget of one block
+H100_SPEC_RF_BYTES = ACG.from_spec(H100_SPEC).memory("RF").capacity_bytes
 QWEN = get_config("qwen3-0.6b")
 # test_kernels.py:22 shapes, then every qwen3 block GEMM at prefill
 # (4 x 512 tokens) and decode (4 tokens)
@@ -150,3 +152,167 @@ def test_gemm_grid_fills_the_card(tokens):
         blocks = -(-g.tokens // bm) * -(-g.n // bn)
         most = -(-g.tokens // min(g.tokens, 64)) * -(-g.n // 16)
         assert blocks >= min(2 * H100["sms"], most) // 2, (g, bm, bn)
+
+
+# The blocks of the kernels that derive their tiling from ``gemm_blocks``
+# but keep their SIMT design, at every shape the main paths and
+# ``chip_smoke.py`` give them: (seq_q, seq_k, head_dim, heads) -> blocks.
+# Pinned before the tensor-core GEMM and flash forward taught the tiler
+# their own rules, so that those rules cannot move these kernels.
+PINNED_BWD = {
+    (512, 512, 128, 64): (64, 64),       # qwen3 train, microbatch 4 x 512
+    (1024, 1024, 128, 64): (64, 64),     # qwen3 at 1024 tokens
+    (256, 256, 128, 16): (64, 32),       # chip_smoke's f32 window check
+    (2048, 2048, 160, 128): (32, 32),    # zamba2 prefill shape
+    (2080, 2080, 160, 128): (32, 32),    # zamba2 at its cache length
+}
+# (rows, seq_k, head_dim, group) -> kv split
+PINNED_DECODE = {
+    (32, 1024, 128, 2): 64,              # qwen3 serve: 4 x 8 kv heads
+    (128, 2080, 160, 1): 112,            # zamba2 serve: 4 x 32 kv heads
+}
+# (chunk, state, headdim, heads) -> (block_l, block_c)
+PINNED_SSD = {
+    (512, 128, 64, 1280): (64, 128),     # mamba2 prefill: 320 rows x 4
+    (512, 64, 64, 1280): (64, 256),      # zamba2 prefill
+    (512, 128, 64, 16): (64, 64),        # chip_smoke's ssd_ref check
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PINNED_BWD))
+def test_attention_bwd_blocks_pinned(shape):
+    from repro_torch.kernels.tiling import attention_bwd_blocks
+
+    sq, sk, d, heads = shape
+    assert attention_bwd_blocks(sq, sk, d, heads=heads) == PINNED_BWD[shape]
+
+
+@pytest.mark.parametrize("shape", sorted(PINNED_DECODE))
+def test_decode_block_kv_pinned(shape):
+    assert decode_block_kv(*shape) == PINNED_DECODE[shape]
+
+
+@pytest.mark.parametrize("shape", sorted(PINNED_SSD))
+def test_ssd_blocks_pinned(shape):
+    from repro_torch.kernels.tiling import ssd_blocks
+
+    chunk, n, p, heads = shape
+    assert ssd_blocks(chunk, n, p, heads=heads) == PINNED_SSD[shape]
+
+
+# every bf16 GEMM the main paths run: qwen3 prefill, decode and train rows,
+# and the decode GEMMs of mamba2-2.7b and zamba2-2.7b
+MAIN_GEMMS = sorted({(g.tokens, g.n, g.k)
+                     for arch, rows in (("qwen3-0.6b", (2048, 4, 4096)),
+                                        ("mamba2-2.7b", (4,)),
+                                        ("zamba2-2.7b", (4,)))
+                     for t in rows
+                     for g in lm_layer_gemms(get_config(arch), t)})
+
+
+@pytest.mark.parametrize("mnk", SHAPES + MAIN_GEMMS)
+def test_wgmma_blocks_obey_the_kernel_rules(mnk):
+    """The tensor-core GEMM's rules: wgmma's N (<= 256) among the built
+    instruction sizes, 64-row warpgroup slabs (at most four), the
+    warpgroups' accumulators within the RF node, and a ring of at least two
+    stages that fits shared memory with its barriers and alignment."""
+    from repro_torch.kernels.tiling import (GEMM_SMEM_RESERVE, WGMMA_N,
+                                            gemm_stage_bytes, gemm_stages,
+                                            wgmma_fits, wgmma_rows)
+
+    bm, bn, bk = gemm_blocks(*mnk, wgmma=True)
+    assert wgmma_fits(bm, bn, bk)
+    assert bn in WGMMA_N and bn <= 256 and bn % 8 == 0
+    rows = wgmma_rows(bm)
+    assert rows >= bm and rows % 64 == 0 and rows // 64 <= 4
+    rf = H100_SPEC_RF_BYTES
+    assert rows * bn * 4 <= rf and bm * bn * 4 <= rf
+    stage_k, stages = gemm_stages(bm, bn, bk)
+    assert stage_k % 64 == 0 and 64 <= stage_k <= 128
+    assert 2 <= stages <= 8
+    assert stages * gemm_stage_bytes(bm, bn, stage_k) + GEMM_SMEM_RESERVE \
+        <= SMEM_MAX
+
+
+@pytest.mark.parametrize("mnk", MAIN_GEMMS)
+def test_wgmma_rules_keep_the_main_path_blocks(mnk):
+    # the kernel's rules only filter: every main-path GEMM keeps its blocks
+    assert gemm_blocks(*mnk, wgmma=True) == gemm_blocks(*mnk)
+
+
+@pytest.mark.parametrize("blocks,ring", [
+    ((128, 64, 512), (128, 2)),      # qwen3 train lm_head: half the SM
+    ((256, 64, 128), (128, 2)),      # qwen3 prefill lm_head: all of it
+    ((4, 16, 3072), (128, 5)),       # qwen3 decode ffn_out: 64-row A slab
+    ((4, 48, 512), (128, 3)),        # mamba2 decode lm_head
+    ((256, 256, 128), (64, 3)),      # two 128-deep stages do not fit
+    ((64, 64, 16), (64, 6)),         # a k block below one swizzle row
+])
+def test_gemm_stages(blocks, ring):
+    from repro_torch.kernels.tiling import gemm_stages
+
+    assert gemm_stages(*blocks) == ring
+
+
+@pytest.mark.parametrize("mnk", MAIN_GEMMS)
+def test_gemm_ring_leaves_room_for_a_second_block(mnk):
+    """Where two 128-deep stages fit half of the SM's shared memory, the
+    ring takes no more than that half (with its barriers, alignment and
+    the hardware's 1 KB a block), so two blocks share an SM."""
+    from repro_torch.kernels.tiling import (GEMM_SMEM_RESERVE,
+                                            gemm_stage_bytes, gemm_stages)
+
+    bm, bn, bk = gemm_blocks(*mnk, wgmma=True)
+    stage_k, stages = gemm_stages(bm, bn, bk)
+    half = SMEM_MAX // 2 - GEMM_SMEM_RESERVE
+    if 2 * gemm_stage_bytes(bm, bn, min(128, -(-bk // 64) * 64)) <= half:
+        assert stages * gemm_stage_bytes(bm, bn, stage_k) <= half
+
+
+def test_wgmma_fits_refuses_what_the_kernel_cannot_run():
+    from repro_torch.kernels.tiling import wgmma_fits
+
+    assert wgmma_fits(256, 64, 128)
+    assert not wgmma_fits(64, 320, 64)     # wgmma's n is at most 256
+    assert not wgmma_fits(64, 80, 64)      # no instruction built for 80
+    assert not wgmma_fits(320, 64, 64)     # five warpgroups
+    assert not wgmma_fits(64, 512, 64)     # no n of 512, nor room in the RF
+    assert not wgmma_fits(70, 192, 64)     # two slabs of (64, 192) f32
+
+
+# (seq_q, seq_k, head_dim, heads) of the bf16 forward on the main paths:
+# qwen3 serve and train (B 4 x 16 heads, S 512), zamba2 prefill (B 4 x 32
+# heads of 160, S 2048), and short and ragged sequences
+MMA_ATTN = [(512, 512, 128, 64), (1024, 1024, 128, 64),
+            (2048, 2048, 160, 128), (2080, 2080, 160, 128),
+            (300, 300, 160, 32), (21, 21, 64, 4), (70, 130, 128, 8)]
+
+
+@pytest.mark.parametrize("shape", MMA_ATTN)
+def test_attention_mma_blocks_fit_the_kernel(shape):
+    """The bf16 forward's working set: q tiles of 64 or 128 rows (16 a
+    warp), kv tiles it is built for, fragments within the register budget
+    and the bf16 tiles within half of shared memory (two blocks an SM)."""
+    from repro_torch.kernels.tiling import (FLASH_MMA_BLOCK_KV,
+                                            FLASH_MMA_BLOCK_Q,
+                                            FLASH_MMA_FRAG_REGS,
+                                            attention_mma_blocks,
+                                            flash_mma_regs,
+                                            flash_mma_smem_bytes)
+
+    sq, sk, d, heads = shape
+    bq, bkv = attention_mma_blocks(sq, sk, d, heads=heads)
+    assert bq in FLASH_MMA_BLOCK_Q and bq % 64 == 0
+    assert bkv in FLASH_MMA_BLOCK_KV and bkv % 16 == 0
+    assert flash_mma_regs(bkv, d) <= FLASH_MMA_FRAG_REGS < 255
+    assert flash_mma_smem_bytes(bq, bkv, d) <= SMEM_MAX // 2 - 1024
+
+
+def test_attention_mma_blocks_at_the_main_path_shapes():
+    from repro_torch.kernels.tiling import (attention_mma_blocks,
+                                            flash_mma_smem_bytes)
+
+    assert attention_mma_blocks(512, 512, 128, heads=64) == (64, 64)
+    assert attention_mma_blocks(2048, 2048, 160, heads=128) == (64, 64)
+    # bf16 q (64 x 168), k and v (2 x 64 x 168 each): 107,520 bytes
+    assert flash_mma_smem_bytes(64, 64, 160) == 107_520
