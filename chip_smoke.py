@@ -5,11 +5,14 @@
 1. builds the Hopper kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, all at once), prints each library's tensor-core instructions
    (``HGMMA``, ``HMMA``, ``IMMA`` in its SASS; the GEMM must hold
-   ``HGMMA`` and the flash forward ``HMMA`` or ``HGMMA``) and the card's
-   name and power limit;
+   ``HGMMA``, the flash forward and the flash backward ``HMMA`` or
+   ``HGMMA``) and the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, in the
    working dtype, at the shapes the main paths give it, and times kernel,
-   plain version and one PyTorch library call with CUDA events;
+   plain version and one PyTorch library call with CUDA events; the decode
+   and the backward also by their kernels' device time under
+   ``torch.profiler`` (``device_ms``), and must give bit-equal results on
+   two runs;
 3. serve: drives ``repro_torch.launch.serve``: the Covenant GEMM report of
    the model's block GEMMs, then full-width qwen3-0.6b with seeded random
    bf16 weights serving 8 requests (batch 4, prompt 512, 32 new tokens)
@@ -44,6 +47,7 @@
 Every phase raises on failure; there is no CPU fallback.
 """
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -69,10 +73,11 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunk_local, ssd_chunk_local_plain, ssd_chunk_scan,
     ssd_chunk_scan_plain)
 from repro_torch.kernels.tiling import (  # noqa: E402
-    attention_blocks, attention_bwd_blocks, attention_mma_blocks,
-    decode_block_kv, gemm_blocks, ssd_blocks)
+    attention_blocks, attention_bwd_blocks, attention_bwd_mma_blocks,
+    attention_mma_blocks, decode_block_kv, gemm_blocks, ssd_blocks)
 from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.launch.layers import lm_layer_gemms, mean_ms  # noqa: E402
+from repro_torch.launch.layers import (  # noqa: E402
+    device_kernels, device_ms, lm_layer_gemms, mean_ms)
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import (make_loss_with_accum,  # noqa: E402
@@ -136,8 +141,10 @@ KERNELS = {
 KERNEL_FNS = (matmul, flash_attention, flash_decode, flash_attention_fwd_lse,
               flash_attention_bwd, ssd_chunk_scan)
 # the tensor-core instructions each redesigned source must hold: the bf16
-# GEMM runs wgmma (HGMMA), the bf16 flash forward mma.sync (HMMA)
-TENSOR_CORE_OPS = {"matmul": ("HGMMA",), "flash_attention": ("HMMA", "HGMMA")}
+# GEMM runs wgmma (HGMMA), the bf16 flash forward and backward mma.sync
+# (HMMA)
+TENSOR_CORE_OPS = {"matmul": ("HGMMA",), "flash_attention": ("HMMA", "HGMMA"),
+                   "flash_attention_bwd": ("HMMA", "HGMMA")}
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -156,6 +163,13 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def bit_equal(run) -> bool:
+    """Two calls of ``run`` give bit-equal tensors (a tensor or a tuple)."""
+    a, b = run(), run()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 class Record:
     """Every checked case; ``main_path`` marks the shapes the served run
     gives a kernel, which the ``kernels`` line sums over."""
@@ -164,15 +178,22 @@ class Record:
         self.cases = []
 
     def add(self, name, case, *, err, ok, tol, ms, plain_ms, bound_ms,
-            bound_by, library_ms, main_path):
+            bound_by, library_ms, main_path, device_ms=None,
+            library_device_ms=None):
         self.cases.append(dict(kernel=name, case=case, max_abs_err=err,
                                tol=tol, ok=bool(ok), ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
-                               library_ms=library_ms, main_path=main_path))
+                               library_ms=library_ms, main_path=main_path,
+                               device_ms=device_ms,
+                               library_device_ms=library_device_ms))
         lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        dev = "" if device_ms is None else (
+            f" device_ms={device_ms:.4f} library_device_ms="
+            + ("null" if library_device_ms is None
+               else f"{library_device_ms:.4f}"))
         print(f"[check] {name:15s} {case:44s} max_abs_err={err:.3e} "
               f"(tol {tol}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib} bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"library_ms={lib}{dev} bound_ms={bound_ms:.4f} ({bound_by}) "
               f"{'ok' if ok else 'FAILED'}", flush=True)
         if not ok:
             raise AssertionError(f"{name} {case}: max_abs_err {err}, "
@@ -263,29 +284,37 @@ def check_decode(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=MAX_LEN,
     v = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
     kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
     bkv = decode_block_kv(b * hkv, s, d, g)
-    got = ops.covenant_decode_attention(q, k, v, kv_len, block_kv=bkv)
+    run = lambda: ops.covenant_decode_attention(  # noqa: E731
+        q, k, v, kv_len, block_kv=bkv)
+    got = run()
     qg, kf, vf = (q.reshape(b * hkv, g, d), k.reshape(b * hkv, s, d),
                   v.reshape(b * hkv, s, d))
-    lens = kv_len.repeat_interleave(hkv)
-    want = flash_decode_plain(qg, kf, vf, lens).reshape(b, hq, d)
+    want = flash_decode_plain(qg, kf, vf, kv_len,
+                              kv_heads=hkv).reshape(b, hq, d)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    ms = mean_ms(lambda: ops.covenant_decode_attention(q, k, v, kv_len,
-                                                       block_kv=bkv), dev, 50)
-    plain_ms = mean_ms(lambda: flash_decode_plain(qg, kf, vf, lens), dev, 50)
+    same = bit_equal(run)
+    ms = mean_ms(run, dev, 50)
+    dev_ms = device_ms(run)
+    plain_ms = mean_ms(lambda: flash_decode_plain(qg, kf, vf, kv_len,
+                                                  kv_heads=hkv), dev, 50)
     mask = (torch.arange(s, device=dev)[None, :] < kv_len[:, None])
     mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
-    library_ms = mean_ms(lambda: F.scaled_dot_product_attention(
-        q4, k, v, attn_mask=mask, enable_gqa=True), dev, 50)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q4, k, v, attn_mask=mask, enable_gqa=True)
+    library_ms = mean_ms(sdpa, dev, 50)
+    library_dev_ms = device_ms(sdpa)
     valid = float(kv_len.sum()) * hkv            # cache rows this data reads
     nbytes = (2 * valid * d + 2 * b * hq * d) * 2 + b * hkv * 4
     b_ms, b_by = bound(4.0 * valid * g * d, H100["peak_bf16_flops"], nbytes)
     rec.add("flash_decode",
-            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} ragged split{bkv}", err=err,
-            ok=err <= ATTN_BF16_ATOL, tol=ATTN_BF16_ATOL, ms=ms,
+            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} ragged split{bkv} "
+            f"{'bit-equal' if same else 'NOT bit-equal'}", err=err,
+            ok=err <= ATTN_BF16_ATOL and same, tol=ATTN_BF16_ATOL, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=library_ms, main_path=True)
+            library_ms=library_ms, main_path=True, device_ms=dev_ms,
+            library_device_ms=library_dev_ms)
 
 
 def _train_qkv(dev, gen, b, hq, hkv, s, d, dtype):
@@ -353,7 +382,9 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
 def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
               main_path) -> None:
     q, k, v, do = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype)
-    bq, bkv = attention_bwd_blocks(s, s, d, heads=b * hq)
+    pick = attention_bwd_mma_blocks if dtype == torch.bfloat16 \
+        else attention_bwd_blocks
+    bq, bkv = pick(s, s, d, heads=b * hq)
     out, lse = flash_attention_fwd_lse_plain(q, k, v, window=window)
     # the model's q_offset (Sk - Sq = 0 for self attention)
     run = lambda: flash_attention_bwd(  # noqa: E731
@@ -365,10 +396,12 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
               for a, w in zip(got, want))
     tol = ATTN_BF16_ATOL if dtype == torch.bfloat16 else ATTN_F32_ATOL
     del got, want
+    same = bit_equal(run)
     ms = mean_ms(run, dev, 10)
+    dev_ms = device_ms(run)
     plain_ms = mean_ms(lambda: flash_attention_bwd_plain(
         q, k, v, out, lse, do, window=window), dev, 5)
-    library_ms = None
+    library_ms = library_dev_ms = None
     if dtype == torch.bfloat16 and not window:
         # aten's flash backward on its own forward's residuals (k and v
         # repeated, so it returns per-q-head dk, dv without the group sum)
@@ -380,9 +413,11 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
             q4, k4, v4, 0.0, True)
         o4, lse4, cq, ck, mq, mk, seed, offset = fwd[:8]
         aten_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
-        library_ms = mean_ms(lambda: aten_bwd(
+        lib = lambda: aten_bwd(  # noqa: E731
             do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, True, seed,
-            offset), dev, 10)
+            offset)
+        library_ms = mean_ms(lib, dev, 10)
+        library_dev_ms = device_ms(lib)
     pairs = _pairs(b, hq, s, True, window)
     # read q, k, v, out, dout and lse once, write dq, dk, dv once; five
     # products (S, dP, dq, dk, dv) of 2 * pairs * D operations each
@@ -394,9 +429,11 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
     rec.add("flash_attention_bwd",
             f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal w{window or 0} {dt} "
-            f"b{bq}x{bkv}", err=err, ok=err <= tol, tol=tol, ms=ms,
+            f"b{bq}x{bkv} {'bit-equal' if same else 'NOT bit-equal'}",
+            err=err, ok=err <= tol and same, tol=tol, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=library_ms, main_path=main_path)
+            library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
+            library_device_ms=library_dev_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -518,20 +555,23 @@ def compare_ssm(cfg, dev) -> tuple[dict, object, dict]:
 def _profile(fn, label: str) -> dict:
     """``fn()`` once under ``torch.profiler``: wall ms, the summed device
     time of its kernels (one stream, so the time the card is busy) and the
-    kernels that take most of it."""
+    kernels that take most of it.  A profile that lost every kernel record
+    is taken again, at most twice."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=lambda r: -r[1])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = device_kernels(prof)
+        if rows:
+            break
+    else:
+        raise AssertionError(f"torch.profiler saw no device time in {label}")
     busy = sum(r[1] for r in rows)
     print(f"[profile] {label} under the profiler: wall {wall_ms:.1f} ms, "
           f"device kernels {busy:.1f} ms, busy share {busy / wall_ms:.3f}",
@@ -934,14 +974,13 @@ def main() -> None:
           f"in {build_s:.1f}s", flush=True)
     for name in _build.SOURCES:
         log = _build.build_logs.get(name, "")
-        regs = [ln.split(":", 1)[1].strip() for ln in log.splitlines()
-                if "registers" in ln]
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
         spills = sum(" 0 bytes spill stores" not in ln
                      for ln in log.splitlines() if "spill stores" in ln)
         sass = _build.sass_counts(name)
-        print(f"[build] {name}: {len(regs)} instantiations, "
-              f"{spills} with spills; tensor-core instructions in SASS "
-              f"{sass}", flush=True)
+        print(f"[build] {name}: {len(regs)} instantiations, at most "
+              f"{max(regs, default=0)} registers a thread, {spills} with "
+              f"spills; tensor-core instructions in SASS {sass}", flush=True)
         want = TENSOR_CORE_OPS.get(name, ())
         if want and not any(sass[op] for op in want):
             raise AssertionError(f"{name}: no {' or '.join(want)} in its "
@@ -998,6 +1037,8 @@ def main() -> None:
                   window=None, main_path=True)
     check_bwd(rec, dev, gen, MB, 16, 8, TRAIN_SEQ, 128, torch.bfloat16,
               window=None, main_path=True)
+    check_bwd(rec, dev, gen, MB, 16, 8, TRAIN_SEQ, 64, torch.bfloat16,
+              window=None, main_path=False)
     check_fwd_lse(rec, dev, gen, 1, 16, 8, 256, 128, torch.float32,
                   window=16, main_path=False)
     check_bwd(rec, dev, gen, 1, 16, 8, 256, 128, torch.float32, window=16,
@@ -1040,6 +1081,8 @@ def main() -> None:
         by_ops = sum(c["bound_ms"] for c in main
                      if c["bound_by"] == "operations")
         lib = [c["library_ms"] for c in main]
+        dev_ms = [c["device_ms"] for c in main]
+        lib_dev = [c["library_device_ms"] for c in main]
         kernels.append(dict(
             name=name, **meta, launches=launches[name],
             max_abs_err=max(c["max_abs_err"] for c in main),
@@ -1048,6 +1091,8 @@ def main() -> None:
             bound_ms=by_bytes + by_ops,
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=None if None in lib else sum(lib),
+            device_ms=None if None in dev_ms else sum(dev_ms),
+            library_device_ms=None if None in lib_dev else sum(lib_dev),
             shapes=len(main), checks=len(cases),
             checks_ok=all(c["ok"] for c in cases)))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -41,7 +41,9 @@
 // worst 1.56e-2 at D128 and at D160, one bf16 ulp of an output in [2, 4),
 // where the SIMT kernel with f32 P gave 3.9e-3 and 7.8e-3.  Block sizes
 // come from the tiler (tiling.attention_mma_blocks); head dims 64, 128 and
-// 160 are built.  wgmma for attention is later work.
+// 160 are built.  The cp.async, ldmatrix and mma.sync helpers are in
+// mma_sync.cuh, shared with the backward.  wgmma for attention is later
+// work.
 //
 // f32 stays on the SIMT lanes (fa_fwd_kernel), in true f32: q, k, v and the
 // logits in f32 shared memory, both products with a register micro-tile
@@ -52,6 +54,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -330,63 +334,11 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kPad = 8;                 // bf16 elements of padding a row
-constexpr float kLog2e = 1.4426950408889634f;
-
 struct FaMmaParams {
   int sq, sk, group;
   int causal, has_window, window, q_offset;
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes from global to shared; zeros where `valid` is false
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 -> f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 __device__ __forceinline__ bool visible_mma(const FaMmaParams& p, int qpos,
                                             int kpos) {
@@ -554,10 +506,8 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // rows are B's k rows, read with transpose
 #pragma unroll
     for (int kp = 0; kp < BKV / 16; ++kp) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kp][0], s[2 * kp][1]),
-                              pack_bf16(s[2 * kp][2], s[2 * kp][3]),
-                              pack_bf16(s[2 * kp + 1][0], s[2 * kp + 1][1]),
-                              pack_bf16(s[2 * kp + 1][2], s[2 * kp + 1][3])};
+      uint32_t pa[4];
+      a_from_c(pa, s, kp);
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t b[4];

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds), in
 ``build/kernels/`` at the repository root.  A library's file name carries a
 hash of its source, so an edited source is rebuilt and an unchanged one is
-reused.  ``build_all`` starts one ``nvcc`` per source, all together, and
+reused; the hash also covers the shared headers (``csrc/*.cuh``).
+``build_all`` starts one ``nvcc`` per source, all together, and
 waits for them; ``library`` builds one at its first use.
 """
 from __future__ import annotations
@@ -46,8 +47,14 @@ def _tool(name: str) -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of every ``csrc/*.cuh`` header, so that an edited header rebuilds the
+    libraries that may include it."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -5,12 +5,14 @@
 Each wrapper launches its ``csrc`` kernel for CUDA tensors
 (``flash_attention.cu`` holds the forward with and without the LSE output:
 bf16 on the tensor cores, f32 on the SIMT lanes;
-``flash_attention_bwd.cu`` the backward's dq and dkv passes,
-``flash_decode.cu`` the decode); CPU tensors take the ``*_plain`` version
+``flash_attention_bwd.cu`` the backward's dq and dkv passes, bf16 on the
+tensor cores, f32 on the SIMT lanes; ``flash_decode.cu`` the decode, one
+launch with its split combine); CPU tensors take the ``*_plain`` version
 beside it, which computes the same function in plain PyTorch.
 ``FlashAttention`` is the autograd Function over the LSE forward and the
 backward.  Block geometry again comes from the Covenant tiler
-(``tiling.attention_blocks`` / ``attention_bwd_blocks``): the QK^T GEMM's
+(``tiling.attention_blocks`` / ``attention_mma_blocks`` /
+``attention_bwd_blocks`` / ``attention_bwd_mma_blocks``): the QK^T GEMM's
 Algorithm-1 tiling is the flash block structure.
 
 Window semantics follow the reference function by function:
@@ -29,7 +31,8 @@ import torch
 
 from . import _build
 from .matmul import thread_tile
-from .tiling import (FLASH_MMA_BLOCK_KV, FLASH_MMA_BLOCK_Q,
+from .tiling import (FLASH_BWD_MMA_BLOCKS, FLASH_BWD_MMA_HEAD_DIMS,
+                     FLASH_MMA_BLOCK_KV, FLASH_MMA_BLOCK_Q,
                      FLASH_MMA_HEAD_DIMS, flash_bwd_smem_bytes,
                      flash_smem_bytes)
 
@@ -342,9 +345,16 @@ def _bwd(q, k, v, out, lse, dout, *, causal, window, scale, block_q,
                         f"{q.device}, got {lse.dtype} on {lse.device}")
     q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
     lse = lse.reshape(bh, sq).contiguous()
+    scale = scale if scale is not None else d ** -0.5
+    if q.dtype == torch.bfloat16:
+        dq, dk, dv = _bwd_mma(q, k, v, out.contiguous(), lse, dout,
+                              causal=causal, window=window, scale=scale,
+                              block_q=block_q, block_kv=block_kv,
+                              q_offset=q_offset)
+        flash_attention_bwd.launches += 1
+        return dq, dk, dv
     # the reference computes delta outside its kernels too (:270)
     delta = (dout.float() * out.float()).sum(-1).contiguous()
-    scale = scale if scale is not None else d ** -0.5
     s_tile = thread_tile(block_q, block_kv, max_tn=8, max_tm=4)
     dq_tile = thread_tile(block_q, d, max_tn=8, max_tm=4)
     dkv_tile = thread_tile(block_kv, d, max_tn=8, max_tm=4)
@@ -372,6 +382,41 @@ def _bwd(q, k, v, out, lse, dout, *, causal, window, scale, block_q,
                      *common, *dkv_tile, smem, stream)
     _build.check("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def _bwd_mma(q, k, v, out, lse, dout, *, causal, window, scale, block_q,
+             block_kv, q_offset):
+    """The bf16 tensor-core backward (``covenant_flash_attention_bwd_mma``:
+    the dq pass, which also writes delta = rowsum(dout * out), then the dkv
+    pass) on checked, contiguous CUDA tensors.  It takes head dims
+    ``FLASH_BWD_MMA_HEAD_DIMS`` and block_q, block_kv in
+    ``FLASH_BWD_MMA_BLOCKS`` (``tiling.attention_bwd_mma_blocks``) and
+    raises on others."""
+    bh, sq, d = q.shape
+    bkv_rows, sk, _ = k.shape
+    if d not in FLASH_BWD_MMA_HEAD_DIMS or block_q not in FLASH_BWD_MMA_BLOCKS \
+            or block_kv not in FLASH_BWD_MMA_BLOCKS:
+        raise ValueError(
+            f"flash_attention_bwd: the bf16 kernel takes head dims "
+            f"{FLASH_BWD_MMA_HEAD_DIMS} and block_q, block_kv in "
+            f"{FLASH_BWD_MMA_BLOCKS}; got {d}, {block_q}, {block_kv}")
+    # a view may start off the 16 bytes cp.async and the vector loads read
+    q, k, v, out, dout = (t.clone() if t.data_ptr() % 16 else t
+                          for t in (q, k, v, out, dout))
+    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = _build.bind("flash_attention_bwd", "covenant_flash_attention_bwd_mma",
+                     [_P] * 10 + [_I] * 12 + [_F, _P])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, bkv_rows,
+                 sq, sk, d, bh // bkv_rows, block_q, block_kv, int(causal),
+                 int(window is not None), 0 if window is None else int(window),
+                 q_offset, float(scale), stream)
+    _build.check("flash_attention_bwd", err)
     return dq, dk, dv
 
 
@@ -408,60 +453,109 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       kv_len: torch.Tensor, *, scale: float | None = None
-                       ) -> torch.Tensor:
+                       kv_len: torch.Tensor, *, scale: float | None = None,
+                       kv_heads: int = 1) -> torch.Tensor:
     """The function ``flash_decode`` computes, in plain PyTorch.
-    q: (BKV, Hg, D); k, v: (BKV, S, D); kv_len: (BKV,)."""
+    q: (BKV, Hg, D); k, v: (BKV, S, D); kv_len: (BKV / kv_heads,), row
+    ``r`` reading ``kv_len[r // kv_heads]``."""
     d = q.shape[-1]
     s_len = k.shape[1]
     scale = scale if scale is not None else d ** -0.5
+    lens = kv_len.to(q.device).repeat_interleave(kv_heads)
     s = (q.float() @ k.float().transpose(1, 2)) * scale     # (BKV, Hg, S)
     kpos = torch.arange(s_len, device=q.device)
-    mask = (kpos[None, :] < kv_len.to(q.device)[:, None])[:, None, :]
+    mask = (kpos[None, :] < lens[:, None])[:, None, :]
     return _masked_softmax_av(s, mask, v).to(q.dtype)
+
+
+# the decode kernel (csrc/flash_decode.cu) is built for these head dims and
+# q heads per kv head
+DECODE_HEAD_DIMS = (8, 16, 32, 64, 128, 160)
+DECODE_GROUPS = (1, 2, 4)
+
+
+def _decode_built(head_dim: int, group: int, elem_bytes: int) -> bool:
+    """The decode kernel is built for this shape (``Shape`` in
+    csrc/flash_decode.cu): a key's 16-byte chunks go to the fewest lanes of
+    4, 8, 16 that hold the group's queries and accumulators in at most 32
+    floats each a lane, cut to the largest power of two dividing the
+    chunks, and a lane may then hold at most 96 of each."""
+    if head_dim not in DECODE_HEAD_DIMS or group not in DECODE_GROUPS \
+            or head_dim * elem_bytes % 16:
+        return False
+    chunks = head_dim * elem_bytes // 16
+    lanes = min(next(n for n in (4, 8, 16) if group * head_dim <= 32 * n
+                     or n == 16), chunks & -chunks)
+    return group * head_dim <= 96 * lanes
+
+
+# (device index, stream) -> the decode kernel's per-row arrival counters
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _arrival_counters(device: torch.device, stream: int,
+                      rows: int) -> torch.Tensor:
+    """int32 zeros, one per row, for the decode kernel's launches on
+    ``stream``: each launch leaves them zero again, so they are made once
+    (and again, larger, for a launch with more rows)."""
+    buf = _counters.get((device.index, stream))
+    if buf is None or buf.numel() < rows:
+        buf = torch.zeros(max(rows, 1024), dtype=torch.int32, device=device)
+        _counters[(device.index, stream)] = buf
+    return buf
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  kv_len: torch.Tensor, *, scale: float | None = None,
-                 block_kv: int = 512) -> torch.Tensor:
+                 block_kv: int = 512, kv_heads: int = 1) -> torch.Tensor:
     """Single-token decode attention against a KV cache.
 
     q: (BKV, Hg, D) — one query block per kv head (Hg = q heads per kv
-    head); k, v: (BKV, S, D); kv_len: (BKV,) valid lengths.  The kernel
-    splits each row's kv walk into ``block_kv`` pieces and combines them by
-    log-sum-exp.  CPU tensors take ``flash_decode_plain``; CUDA tensors
-    launch the kernel or raise."""
+    head); k, v: (BKV, S, D); kv_len: (BKV / kv_heads,) valid lengths,
+    row ``r`` reading ``kv_len[r // kv_heads]`` (one length per batch entry
+    of ``kv_heads`` consecutive rows; 1 gives the reference's one length a
+    row).  The kernel splits each row's kv walk into ``block_kv`` pieces
+    and combines them by log-sum-exp in the same launch.  CPU tensors take
+    ``flash_decode_plain``; CUDA tensors launch the kernel or raise."""
     rows, hg, d = q.shape
     _, s_len, dk = k.shape
     if dk != d or v.shape != k.shape or k.shape[0] != rows \
-            or kv_len.shape != (rows,):
+            or kv_heads < 1 or rows % kv_heads \
+            or kv_len.shape != (rows // kv_heads,):
         raise ValueError(f"flash_decode: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, kv_len {tuple(kv_len.shape)}")
+                         f"{tuple(k.shape)}, kv_len {tuple(kv_len.shape)}, "
+                         f"kv_heads {kv_heads}")
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, kv_len, scale=scale)
+        return flash_decode_plain(q, k, v, kv_len, scale=scale,
+                                  kv_heads=kv_heads)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_decode: unsupported devices {q.device}, "
                          f"{k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_decode: unsupported dtypes {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if not _decode_built(d, hg, q.element_size()):
+        raise ValueError(f"flash_decode: the kernel is built for head dims "
+                         f"{DECODE_HEAD_DIMS} and groups {DECODE_GROUPS} "
+                         f"whose 16-byte chunks split evenly over its lanes; "
+                         f"got head dim {d}, group {hg}, {q.dtype}")
+    # a view may start off the 16 bytes cp.async reads
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     lens = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     scale = scale if scale is not None else d ** -0.5
     n_split = math.ceil(s_len / block_kv)
-    part_m = torch.empty((rows, n_split, hg), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((rows, n_split, hg, d), dtype=torch.float32,
-                           device=q.device)
+    part = torch.empty(rows * n_split * hg * (d + 2), dtype=torch.float32,
+                       device=q.device)
     out = torch.empty_like(q)
     fn = _build.bind("flash_decode", f"covenant_flash_decode_{_DTYPES[q.dtype]}",
-                     [_P] * 8 + [_I] * 5 + [_F, _P])
+                     [_P] * 4 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _arrival_counters(q.device, stream, rows)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-                 out.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-                 part_acc.data_ptr(), rows, s_len, d, hg, block_kv,
+                 kv_heads, out.data_ptr(), part.data_ptr(),
+                 counters.data_ptr(), rows, s_len, d, hg, block_kv,
                  float(scale), stream)
     _build.check("flash_decode", err)
     flash_decode.launches += 1
@@ -470,7 +564,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_decode.launches = 0
 
-__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
+__all__ = ["DECODE_GROUPS", "DECODE_HEAD_DIMS", "FlashAttention",
+           "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_fwd_lse",
            "flash_attention_fwd_lse_plain", "flash_attention_plain",
            "flash_decode", "flash_decode_plain"]

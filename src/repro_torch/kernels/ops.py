@@ -17,7 +17,8 @@ from .flash_attention import flash_attention as _fa, flash_decode as _fd
 from .matmul import matmul as _mm
 from .ssd_scan import ssd_chunk_scan as _ssd
 from .tiling import (attention_blocks, attention_bwd_blocks,
-                     attention_mma_blocks, gemm_blocks)
+                     attention_bwd_mma_blocks, attention_mma_blocks,
+                     gemm_blocks)
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -70,10 +71,11 @@ def covenant_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     needs a gradient of q, k or v, the call goes through ``FlashAttention``
     (the LSE forward, then the flash backward, with the tiler's backward
     blocks); otherwise through the forward-only kernel.  Both compute the
-    same output, with the same masks.  bf16 takes the tensor-core forward's
+    same output, with the same masks.  bf16 takes the tensor-core kernels'
     blocks (``attention_mma_blocks``: block_q a whole number of 64-row
-    tiles, even past a short Sq, whose edge the kernel masks), f32 the SIMT
-    forward's (``attention_blocks``, block_q cut to Sq)."""
+    tiles, even past a short Sq, whose edge the kernel masks; and
+    ``attention_bwd_mma_blocks`` for the backward), f32 the SIMT kernels'
+    (``attention_blocks``, block_q cut to Sq; ``attention_bwd_blocks``)."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     mma = q.dtype == torch.bfloat16
@@ -88,7 +90,12 @@ def covenant_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kf, vf = k.reshape(b * hkv, sk, d), v.reshape(b * hkv, sk, d)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        bwd_blocks = attention_bwd_blocks(sq, sk, d, heads=b * hq)
+        # the bf16 backward on the card takes its tensor-core blocks (and
+        # raises for a head dim it is not built for); CPU tensors take the
+        # plain backward, which uses no blocks
+        pick = attention_bwd_mma_blocks if mma and q.device.type == "cuda" \
+            else attention_bwd_blocks
+        bwd_blocks = pick(sq, sk, d, heads=b * hq)
         out = FlashAttention.apply(qf, kf, vf, causal, window, scale,
                                    (bq, bkv), bwd_blocks, sk - sq)
     else:
@@ -109,8 +116,9 @@ def covenant_decode_attention(q: torch.Tensor, k: torch.Tensor,
     qg = q.reshape(b * hkv, g, d)
     kf = k.reshape(b * hkv, s, d)
     vf = v.reshape(b * hkv, s, d)
-    lens = kv_len.repeat_interleave(hkv)
-    out = _fd(qg, kf, vf, lens, scale=scale, block_kv=min(block_kv, s))
+    # the kernel reads batch entry r // hkv's length for row r
+    out = _fd(qg, kf, vf, kv_len, scale=scale, block_kv=min(block_kv, s),
+              kv_heads=hkv)
     return out.reshape(b, hq, d)
 
 

@@ -30,7 +30,9 @@ can run (``wgmma_fits``: wgmma's N sizes, at most four 64-row consumer
 warpgroups, a stage ring of at least two stages, ``gemm_stages``), and
 ``attention_mma_blocks`` fits the tiler's flash tiling to the mma.sync
 forward's 16-row warps, register fragments and bf16 shared memory
-(``flash_mma_smem_bytes``).
+(``flash_mma_smem_bytes``), and ``attention_bwd_mma_blocks`` does the same
+for the mma.sync backward (``flash_bwd_mma_smem_bytes``,
+``flash_bwd_mma_regs``).
 """
 from __future__ import annotations
 
@@ -314,6 +316,70 @@ def attention_bwd_blocks(seq_q: int, seq_k: int, head_dim: int,
     return bq, bkv
 
 
+# the bf16 tensor-core flash backward (csrc/flash_attention_bwd.cu): warps
+# of 16 rows in both passes (q rows in the dq pass, kv rows in the dkv
+# pass), the head dims and blocks it is built for (the head dims the bf16
+# backward's tests and the train path use), and the columns of the walked
+# tile a warp holds in registers at once
+FLASH_BWD_MMA_HEAD_DIMS = (16, 32, 64, 128)
+FLASH_BWD_MMA_BLOCKS = (64, 128)
+FLASH_BWD_MMA_SLICE = 32
+# of the 255 registers a thread may hold, what the backward's fragments may
+# take: it addresses more operand tiles and masks a step than the forward
+# (FLASH_MMA_FRAG_REGS)
+FLASH_BWD_MMA_FRAG_REGS = 160
+
+
+def flash_bwd_mma_smem_bytes(block_q: int, block_kv: int,
+                             head_dim: int) -> int:
+    """Shared memory of one block of the bf16 tensor-core flash backward,
+    the larger of its two passes, rows padded by 8 elements: the dq pass
+    holds the bf16 q and dout tiles (block_q rows), two buffers each of the
+    k and v tiles (block_kv rows) and its rows' f32 delta; the dkv pass
+    holds the k and v tiles and two buffers each of the q and dout tiles
+    and of their f32 lse and delta."""
+    row = 2 * (head_dim + FLASH_MMA_PAD)
+    dq = (2 * block_q + 4 * block_kv) * row + 4 * block_q
+    dkv = (2 * block_kv + 4 * block_q) * row + 16 * block_q
+    return max(dq, dkv)
+
+
+def flash_bwd_mma_regs(head_dim: int) -> int:
+    """32-bit registers a thread holds in fragments, the larger pass: the
+    dkv pass walks its q tiles once for dV and once for dK, so a warp
+    holds one f32 (16 x d) accumulator beside the f32 S^T and dP^T tiles
+    of one 32-column slice (16 x 32 each); the dq pass the same for dQ."""
+    return (16 * head_dim + 2 * 16 * FLASH_BWD_MMA_SLICE) // 32
+
+
+def attention_bwd_mma_blocks(seq_q: int, seq_k: int, head_dim: int,
+                             heads: int = 1) -> tuple[int, int]:
+    """(block_q, block_kv) for the bf16 tensor-core flash backward: the
+    Covenant tiler's flash tiling (``attention_blocks``) fitted to the
+    kernel's rules.  Each is 64 or 128 (4 or 8 warps of 16 rows in the pass
+    whose block it is; the kernel masks ragged edges); then the larger
+    shrinks until both passes' tiles fit half the SM's shared memory
+    (``flash_bwd_mma_smem_bytes``), so two blocks share an SM.  Head dims
+    the kernel is not built for raise, 160 among them: no path trains
+    zamba2's shared block, and at 160 a (64, 64) block's tiles pass half
+    the SM's shared memory."""
+    if head_dim not in FLASH_BWD_MMA_HEAD_DIMS:
+        raise ValueError(f"the bf16 flash backward is built for head dims "
+                         f"{FLASH_BWD_MMA_HEAD_DIMS}, not {head_dim}")
+    lo, hi = FLASH_BWD_MMA_BLOCKS
+    bq, bkv = attention_blocks(seq_q, seq_k, head_dim, heads=heads)
+    bq, bkv = (hi if bq >= hi else lo), (hi if bkv >= hi else lo)
+    smem_b, _ = _budgets()
+    while flash_bwd_mma_smem_bytes(bq, bkv, head_dim) > smem_b // 2 - 1024:
+        if bkv > lo and bkv >= bq:
+            bkv = lo
+        elif bq > lo:
+            bq = lo
+        else:
+            break
+    return bq, bkv
+
+
 def decode_block_kv(rows: int, seq_k: int, head_dim: int,
                     group: int) -> int:
     """kv split length for decode: the QK^T tiling of the ``rows`` (batch x
@@ -362,9 +428,13 @@ def ssd_blocks(chunk: int, state: int, headdim: int,
     return bl, bc
 
 
-__all__ = ["FLASH_MMA_BLOCK_KV", "FLASH_MMA_BLOCK_Q", "FLASH_MMA_HEAD_DIMS",
+__all__ = ["FLASH_BWD_MMA_BLOCKS", "FLASH_BWD_MMA_FRAG_REGS",
+           "FLASH_BWD_MMA_HEAD_DIMS", "FLASH_BWD_MMA_SLICE",
+           "FLASH_MMA_BLOCK_KV", "FLASH_MMA_BLOCK_Q", "FLASH_MMA_HEAD_DIMS",
            "K_UNIT", "N_UNIT", "WARPGROUP_M", "WGMMA_N", "attention_blocks",
-           "attention_bwd_blocks", "attention_mma_blocks", "decode_block_kv",
+           "attention_bwd_blocks", "attention_bwd_mma_blocks",
+           "attention_mma_blocks", "decode_block_kv",
+           "flash_bwd_mma_regs", "flash_bwd_mma_smem_bytes",
            "flash_bwd_smem_bytes", "flash_mma_regs", "flash_mma_smem_bytes",
            "flash_smem_bytes", "gemm_blocks", "gemm_fits", "gemm_stage_bytes",
            "gemm_stages", "ssd_blocks", "ssd_smem_bytes", "wgmma_fits",

@@ -105,4 +105,50 @@ def mean_ms(fn, device: torch.device, repeats: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / repeats
 
 
-__all__ = ["LayerGemm", "layer_report", "lm_layer_gemms", "mean_ms"]
+def device_kernels(prof) -> list[tuple[str, float, int]]:
+    """(kernel, device ms, calls) of every kernel a profile saw, largest
+    first."""
+    return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda r: -r[1])
+
+
+def device_ms(fn, calls: int = 20, rounds: int = 3,
+              empty_windows: int = 5) -> float:
+    """Device time of one call of ``fn`` under ``torch.profiler``, as
+    chip_smoke.py's profiles read the card's time: over ``calls`` calls,
+    after one outside the window, each kernel's mean time a launch times
+    its launches a call (its count over ``calls``, rounded, at least one),
+    summed over the kernels; the median of ``rounds`` windows.  A window
+    sometimes loses kernel records, or holds one from the calls before
+    it, so a kernel's count alone would misread the time.  A window that
+    lost every record is taken again; after ``empty_windows`` such windows
+    this raises.  CUDA events around a loop of host calls (``mean_ms``)
+    also count the host's gaps between short kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    totals = []
+    empty = 0
+    while len(totals) < rounds:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_kernels(prof)
+        if not rows:
+            empty += 1
+            if empty >= empty_windows:
+                raise AssertionError(f"torch.profiler saw no device time "
+                                     f"in {empty} windows")
+            continue
+        totals.append(sum(ms / n * max(1, round(n / calls))
+                          for _, ms, n in rows))
+    return sorted(totals)[rounds // 2]
+
+
+__all__ = ["LayerGemm", "device_kernels", "device_ms", "layer_report",
+           "lm_layer_gemms", "mean_ms"]

@@ -184,11 +184,16 @@ def _train_inputs(dev, case, dtype):
     return q, k, v, do
 
 
-def _blocks(case):
-    from repro_torch.kernels.tiling import attention_bwd_blocks
+def _blocks(case, dtype):
+    """The tiler's backward blocks for the kernel ``dtype`` runs: the
+    tensor-core kernel's for bf16, the SIMT kernel's for f32."""
+    from repro_torch.kernels.tiling import (attention_bwd_blocks,
+                                            attention_bwd_mma_blocks)
 
-    return attention_bwd_blocks(case["sq"], case["sk"], case["d"],
-                                heads=case["b"] * case["hq"])
+    pick = attention_bwd_mma_blocks if dtype == torch.bfloat16 \
+        else attention_bwd_blocks
+    return pick(case["sq"], case["sk"], case["d"],
+                heads=case["b"] * case["hq"])
 
 
 @pytest.mark.parametrize("case", TRAIN_CASES)
@@ -226,7 +231,7 @@ def test_flash_bwd_on_card(cuda, case, dtype):
     off = case["sk"] - case["sq"]
     out, lse = flash_attention_fwd_lse_plain(
         q, k, v, causal=case["causal"], window=case["win"], q_offset=off)
-    bq, bkv = _blocks(case)
+    bq, bkv = _blocks(case, dtype)
     before = flash_attention_bwd.launches
     got = flash_attention_bwd(q, k, v, out, lse, do, causal=case["causal"],
                               window=case["win"], block_q=bq, block_kv=bkv,
@@ -256,9 +261,9 @@ def test_flash_training_pair_full_width_bf16_on_card(cuda):
     want, want_lse = flash_attention_fwd_lse_plain(q, k, v)
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
-    got = flash_attention_bwd(q, k, v, want, want_lse, do,
-                              block_q=_blocks(case)[0],
-                              block_kv=_blocks(case)[1])
+    bq, bkv = _blocks(case, torch.bfloat16)
+    got = flash_attention_bwd(q, k, v, want, want_lse, do, block_q=bq,
+                              block_kv=bkv)
     ref = flash_attention_bwd_plain(q, k, v, want, want_lse, do)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=0)
@@ -581,3 +586,161 @@ def test_flash_mma_bf16_on_card(cuda, d, hq, hkv, sq, sk, window):
             # rows whose q position is below 0 see no key: zeros, -1e30
             assert bool((out[:, :-off] == 0).all())
             assert bool((lse[:, :-off] == -1e30).all())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 flash backward on the tensor cores (mma.sync) and the pipelined
+# flash decode with its fused combine
+# ---------------------------------------------------------------------------
+
+# bf16 backward cases: (Sq, Sk, window); window 0 or None is no window at
+# this level.  Sq > Sk puts q row 0 at kv position Sk - Sq, so the first
+# rows see no key: lse -1e30, and their dq must be zeros
+MMA_BWD_CASES = [(70, 130, None), (70, 130, 16), (130, 70, None),
+                 (200, 200, 16)]
+
+
+@pytest.mark.parametrize("sq,sk,window", MMA_BWD_CASES)
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2)])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_bwd_mma_bf16_on_card(cuda, d, hq, hkv, sq, sk, window):
+    """Every block pair the kernel is built for, GQA, ragged edges, a
+    window, Sq > Sk; against the plain version at the bf16 bound (2e-2)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd_lse_plain)
+    from repro_torch.kernels.tiling import FLASH_BWD_MMA_BLOCKS
+
+    q = randn(cuda, hq, sq, d, dtype=torch.bfloat16)
+    k = randn(cuda, hkv, sk, d, dtype=torch.bfloat16)
+    v = randn(cuda, hkv, sk, d, dtype=torch.bfloat16)
+    do = randn(cuda, hq, sq, d, dtype=torch.bfloat16)
+    off = sk - sq
+    out, lse = flash_attention_fwd_lse_plain(q, k, v, window=window,
+                                             q_offset=off)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, window=window,
+                                     q_offset=off)
+    for bq in FLASH_BWD_MMA_BLOCKS:
+        for bkv in FLASH_BWD_MMA_BLOCKS:
+            before = flash_attention_bwd.launches
+            got = flash_attention_bwd(q, k, v, out, lse, do, window=window,
+                                      block_q=bq, block_kv=bkv, q_offset=off)
+            torch.cuda.synchronize()
+            assert flash_attention_bwd.launches == before + 1
+            for a, b in zip(got, want):
+                assert a.dtype == torch.bfloat16 and a.shape == b.shape
+                torch.testing.assert_close(a.float(), b.float(), atol=2e-2,
+                                           rtol=0)
+            if off < 0:
+                assert bool((lse[:, :-off] == -1e30).all())
+                assert bool((got[0][:, :-off] == 0).all())
+
+
+def test_flash_bwd_mma_refuses_other_head_dims_on_card(cuda):
+    """bf16 head dims the tensor-core backward is not built for raise; they
+    are not handed to the SIMT kernel."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd_lse_plain)
+
+    for d in (160, 48):
+        q = randn(cuda, 2, 64, d, dtype=torch.bfloat16)
+        out, lse = flash_attention_fwd_lse_plain(q, q, q)
+        with pytest.raises(ValueError):
+            flash_attention_bwd(q, q, q, out, lse, q, block_q=64,
+                                block_kv=64)
+    q = randn(cuda, 2, 64, 64, dtype=torch.bfloat16)
+    out, lse = flash_attention_fwd_lse_plain(q, q, q)
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, q, q, out, lse, q, block_q=32, block_kv=64)
+
+
+def test_flash_bwd_and_decode_deterministic_on_card(cuda):
+    """Two runs of the bf16 backward (qwen3's training shape, tiler blocks)
+    and of the decode (zamba2's shape, rows of several splits, whose last
+    block to arrive combines them) give bit-equal results."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd_lse_plain)
+    from repro_torch.kernels.tiling import (attention_bwd_mma_blocks,
+                                            decode_block_kv)
+
+    case = dict(b=4, hq=16, hkv=8, sq=512, sk=512, d=128)
+    q, k, v, do = _train_inputs(cuda, case, torch.bfloat16)
+    out, lse = flash_attention_fwd_lse_plain(q, k, v)
+    bq, bkv = attention_bwd_mma_blocks(512, 512, 128, heads=64)
+    runs = [flash_attention_bwd(q, k, v, out, lse, do, block_q=bq,
+                                block_kv=bkv) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    b_, h, s, d = 4, 32, 2080, 160
+    q = randn(cuda, b_, h, d, dtype=torch.bfloat16)
+    k = randn(cuda, b_, h, s, d, dtype=torch.bfloat16)
+    v = randn(cuda, b_, h, s, d, dtype=torch.bfloat16)
+    kv_len = torch.tensor([1, 700, 2049, 2080], device=cuda,
+                          dtype=torch.int32)
+    bkv = decode_block_kv(b_ * h, s, d, 1)
+    first = ops.covenant_decode_attention(q, k, v, kv_len, block_kv=bkv)
+    for _ in range(3):
+        assert torch.equal(ops.covenant_decode_attention(
+            q, k, v, kv_len, block_kv=bkv), first)
+
+
+# the decode at both served models' shapes: (B, Hq, Hkv, S, D)
+DECODE_MODEL_SHAPES = [(4, 16, 8, 1024, 128), (4, 32, 32, 2080, 160)]
+
+
+@pytest.mark.parametrize("shape", DECODE_MODEL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_model_shapes_on_card(cuda, shape, dtype):
+    """kv_len 0 (zeros), 1, either side of a split edge and the full cache,
+    with the tiler's split; against the plain version (bf16 2e-2, f32
+    2e-3).  The lengths are one per batch entry, int32 on the card as the
+    models keep them, read by the kernel for each kv head's row."""
+    from repro_torch.kernels.tiling import decode_block_kv
+
+    b, hq, hkv, s, d = shape
+    bkv = decode_block_kv(b * hkv, s, d, hq // hkv)
+    q = randn(cuda, b, hq, d, dtype=dtype)
+    k = randn(cuda, b, hkv, s, d, dtype=dtype)
+    v = randn(cuda, b, hkv, s, d, dtype=dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    for lens in ((0, 1, bkv, s), (bkv + 1, 2 * bkv - 1, 2 * bkv, s - 1)):
+        kv_len = torch.tensor(lens, device=cuda, dtype=torch.int32)
+        before = flash_decode.launches
+        got = ops.covenant_decode_attention(q, k, v, kv_len, block_kv=bkv)
+        torch.cuda.synchronize()
+        assert flash_decode.launches == before + 1
+        want = flash_decode_plain(
+            q.reshape(b * hkv, hq // hkv, d), k.reshape(b * hkv, s, d),
+            v.reshape(b * hkv, s, d), kv_len, kv_heads=hkv).reshape(b, hq, d)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+        if lens[0] == 0:
+            assert bool((got[0] == 0).all())
+
+
+def test_flash_bwd_sass_holds_hmma_on_card(cuda):
+    """The backward's library runs its bf16 products on the tensor cores:
+    its SASS holds mma.sync (HMMA)."""
+    from repro_torch.kernels import _build
+
+    _build.library("flash_attention_bwd")
+    assert _build.sass_counts("flash_attention_bwd")["HMMA"] > 0
+
+
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("hg", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_short_rows_on_card(cuda, d, hg, dtype):
+    """Head dims of one to four 16-byte chunks (the SMOKE models' 16
+    among them): a key gets fewer lanes, up to one a key.  Lengths of one
+    batch entry per two rows, across several splits of 16."""
+    rows, s = 6, 100
+    q = randn(cuda, rows, hg, d, dtype=dtype)
+    k, v = randn(cuda, rows, s, d, dtype=dtype), randn(cuda, rows, s, d,
+                                                       dtype=dtype)
+    kv_len = torch.tensor([0, 37, 100], device=cuda, dtype=torch.int32)
+    got = flash_decode(q, k, v, kv_len, block_kv=16, kv_heads=2)
+    want = flash_decode_plain(q, k, v, kv_len, kv_heads=2)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert bool((got[:2] == 0).all())

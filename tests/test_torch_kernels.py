@@ -123,6 +123,27 @@ def test_flash_decode_matches_reference():
     np.testing.assert_allclose(f32(got), f32(want), atol=2e-3)
 
 
+@pytest.mark.parametrize("kv_heads", [1, 2, 4])
+def test_flash_decode_kv_heads_matches_reference(kv_heads):
+    """One length per batch entry of ``kv_heads`` rows: the same as the
+    reference's Pallas decode (interpret mode) given one length per row."""
+    from repro.kernels.flash_attention import flash_decode as jflash_decode
+
+    b, hg, s, d = 3, 2, 96, 32
+    rows = b * kv_heads
+    (q, jq), (k, jk), (v, jv) = pair(rows, hg, d), pair(rows, s, d), \
+        pair(rows, s, d)
+    lens = np.array([0, 96, 33])
+    got = flash_decode(q, k, v, torch.from_numpy(lens).int(), block_kv=32,
+                       kv_heads=kv_heads)
+    want = jflash_decode(jq, jk, jv, jnp.asarray(np.repeat(lens, kv_heads)),
+                         block_kv=32, interpret=True)
+    np.testing.assert_allclose(f32(got), f32(want), atol=2e-3)
+    assert bool((got[:kv_heads] == 0).all())
+    with pytest.raises(ValueError):
+        flash_decode(q, k, v, torch.from_numpy(lens), kv_heads=kv_heads + 1)
+
+
 def test_flash_window_equals_dense_when_window_covers_all():
     case = dict(b=1, hq=2, hkv=2, sq=64, sk=64, d=16)
     (q, jq), (k, jk), (v, jv) = _qkv(case)

@@ -1,0 +1,29 @@
+"""The arithmetic behind the bf16 flash backward's operand split
+(``launch/attn_probes.py``, ``csrc/mma_sync.cuh`` a_split3_from_c), on the
+CPU: three bf16 parts hold an f32 value exactly, and at a small causal
+attention the split's outputs round to the plain version's bf16 values as
+often as an exact operand's do, where two parts miss several times as
+often."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.launch.attn_probes import bf16_parts, simulate
+
+
+def test_three_bf16_parts_hold_an_f32():
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32)) * 1e3
+    assert torch.equal(bf16_parts(x, 3), x.double())
+    assert not torch.equal(bf16_parts(x, 2), x.double())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_three_parts_round_like_an_exact_operand(seed):
+    shape = dict(b=1, hq=4, hkv=2, s=256)
+    res = simulate(torch.device("cpu"), 32, seed, shape)
+    numel = [4 * 256 * 32, 2 * 256 * 32, 2 * 256 * 32]   # dq, dk, dv
+    for three, two, exact, n in zip(res["3 parts"], res["2 parts"],
+                                    res["exact"], numel):
+        assert three <= exact + 3 / n
+        assert two > 2 * exact

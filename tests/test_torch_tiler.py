@@ -316,3 +316,97 @@ def test_attention_mma_blocks_at_the_main_path_shapes():
     assert attention_mma_blocks(2048, 2048, 160, heads=128) == (64, 64)
     # bf16 q (64 x 168), k and v (2 x 64 x 168 each): 107,520 bytes
     assert flash_mma_smem_bytes(64, 64, 160) == 107_520
+
+
+# (seq_q, seq_k, head_dim, heads) -> the bf16 backward's blocks: qwen3's
+# training shape (microbatch 4 x 512, 16 heads), qwen3 at 1024 tokens, and
+# the D64 case chip_smoke.py checks beside the train shape
+PINNED_BWD_MMA = {
+    (512, 512, 128, 64): (64, 64),
+    (1024, 1024, 128, 64): (64, 64),
+    (512, 512, 64, 64): (64, 128),
+}
+# every bf16 backward shape of the card tests and the main path
+BWD_MMA_SHAPES = sorted(PINNED_BWD_MMA) + [
+    (64, 64, 32, 8), (100, 100, 16, 8), (32, 96, 32, 4),
+    (48, 48, 16, 2), (40, 40, 64, 4), (70, 130, 128, 8), (130, 70, 16, 4),
+    (200, 200, 64, 2), (2048, 2048, 128, 128), (21, 21, 32, 1)]
+
+
+@pytest.mark.parametrize("shape", sorted(PINNED_BWD_MMA))
+def test_attention_bwd_mma_blocks_pinned(shape):
+    from repro_torch.kernels.tiling import attention_bwd_mma_blocks
+
+    sq, sk, d, heads = shape
+    assert attention_bwd_mma_blocks(sq, sk, d, heads=heads) == \
+        PINNED_BWD_MMA[shape]
+
+
+@pytest.mark.parametrize("shape", BWD_MMA_SHAPES)
+def test_attention_bwd_mma_blocks_fit_the_kernel(shape):
+    """Blocks the kernel is built for (4 or 8 warps of 16 rows, whole
+    32-column slices), both passes' tiles within half of shared memory
+    with the hardware's 1 KB a block (two blocks an SM), and the dkv
+    pass's fragments within the register budget."""
+    from repro_torch.kernels.tiling import (FLASH_BWD_MMA_BLOCKS,
+                                            FLASH_BWD_MMA_FRAG_REGS,
+                                            FLASH_BWD_MMA_SLICE,
+                                            attention_bwd_mma_blocks,
+                                            flash_bwd_mma_regs,
+                                            flash_bwd_mma_smem_bytes)
+
+    sq, sk, d, heads = shape
+    bq, bkv = attention_bwd_mma_blocks(sq, sk, d, heads=heads)
+    for blk in (bq, bkv):
+        assert blk in FLASH_BWD_MMA_BLOCKS
+        assert blk % 16 == 0 and blk % FLASH_BWD_MMA_SLICE == 0
+        assert blk // 16 in (4, 8)
+    assert 2 * (flash_bwd_mma_smem_bytes(bq, bkv, d) + 1024) <= SMEM_MAX
+    assert flash_bwd_mma_regs(d) <= FLASH_BWD_MMA_FRAG_REGS < 255
+
+
+def test_flash_bwd_mma_budgets():
+    """The layouts the kernel allocates (csrc/flash_attention_bwd.cu,
+    dq_mma_smem and dkv_mma_smem) and the fragments: at D128 one
+    accumulator (dV, then dK, or dQ) takes 64 registers a thread, the two
+    16 x 32 tiles of a slice 32; dK and dV together would take 128."""
+    from repro_torch.kernels.tiling import (FLASH_BWD_MMA_FRAG_REGS,
+                                            FLASH_BWD_MMA_HEAD_DIMS,
+                                            flash_bwd_mma_regs,
+                                            flash_bwd_mma_smem_bytes)
+
+    # dq: (2 x 64 + 4 x 64) rows of 136 bf16 + 64 f32 delta; dkv: (2 x 64
+    # + 4 x 64) rows + 2 x 2 x 64 f32 lse and delta
+    assert flash_bwd_mma_smem_bytes(64, 64, 128) == 384 * 272 + 1024
+    # the dkv pass is the larger with block_q 128: (2 x 64 + 4 x 128) rows
+    # of 72 bf16 and 2 x 2 x 128 f32
+    assert flash_bwd_mma_smem_bytes(128, 64, 64) == 640 * 144 + 2048
+    assert flash_bwd_mma_regs(128) == 64 + 32
+    assert 2 * 64 + 32 <= FLASH_BWD_MMA_FRAG_REGS
+    assert all(flash_bwd_mma_regs(d) <= FLASH_BWD_MMA_FRAG_REGS
+               for d in FLASH_BWD_MMA_HEAD_DIMS)
+    # at 160 (not built) a (64, 64) block passes half of shared memory
+    assert 2 * (flash_bwd_mma_smem_bytes(64, 64, 160) + 1024) > SMEM_MAX
+
+
+@pytest.mark.parametrize("head_dim", [8, 48, 96, 160, 256])
+def test_attention_bwd_mma_blocks_refuse_other_head_dims(head_dim):
+    from repro_torch.kernels.tiling import attention_bwd_mma_blocks
+
+    with pytest.raises(ValueError):
+        attention_bwd_mma_blocks(512, 512, head_dim, heads=64)
+
+
+def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc/*.cuh header, so
+    an edited header builds anew instead of reusing a stale library."""
+    from repro_torch.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._target("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._target("k") != before
+    (tmp_path / "h.cuh").write_text("// one\n")
+    assert _build._target("k") == before
