@@ -5,8 +5,9 @@
 1. builds the Hopper kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, all at once), prints each library's tensor-core instructions
    (``HGMMA``, ``HMMA``, ``IMMA`` in its SASS; the GEMM must hold
-   ``HGMMA``, the flash forward and the flash backward ``HMMA`` or
-   ``HGMMA``) and the card's name and power limit;
+   ``HGMMA``, the flash forward, the flash backward and the SSD chunk scan
+   ``HMMA`` or ``HGMMA``, and their tensor-core kernels must build without
+   a register spill) and the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, in the
    working dtype, at the shapes the main paths give it, and times kernel,
    plain version and one PyTorch library call with CUDA events; the decode
@@ -28,9 +29,10 @@
    read just after, and resumes the same run to 8 steps from its step-6
    checkpoint; then profiles one more train step for the card's busy share;
 5. ssd: holds ``ssd_chunk_scan`` against its plain version at the
-   prefill shapes of mamba2-2.7b (bf16) and zamba2-2.7b (f32), and in f32
-   against the sequential oracle ``ssd_ref`` (ragged S, 2 groups, an
-   ``init_state`` continuation);
+   prefill shapes of mamba2-2.7b (bf16) and zamba2-2.7b (f32), bit-equal
+   on two runs, with its device time, and in f32 against the sequential
+   oracle ``ssd_ref`` (ragged S, 2 groups, an ``init_state``
+   continuation);
 6. and 7. serves full-width mamba2-2.7b, then zamba2-2.7b (seeded random
    bf16 weights, 8 requests, batch 4, prompt 2048, 32 new tokens, cache
    2080) through ``launch.serve`` with every counter from 0, requires the
@@ -40,7 +42,14 @@
    the kernel path with the plain path (gated in f32, printed in bf16
    beside the bf16 model's own spread) and profiles one prefill; each
    model is freed before the next loads;
-8. prints a ``kernels`` JSON line (six kernels, launches summed over every
+8. trains mamba2-2.7b, then zamba2-2.7b: the SSD kernel at the train
+   shape (2 x 1024 tokens, bf16) and for zamba2 the LSE forward and the
+   backward at head dim 160; one train step at full width and reduced
+   depth, kernel path against plain path in f32 and bf16
+   (``compare_ssm_train_paths``); then ``launch.train`` at full width and
+   depth, 3 steps of 2 x 1024 with no checkpoint, the counters from 0,
+   the SSD kernel (and for zamba2 the flash backward) required;
+9. prints a ``kernels`` JSON line (six kernels, launches summed over every
    path) and, last, the ``ok`` JSON line; the per-case details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -74,7 +83,7 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ssd_chunk_scan_plain)
 from repro_torch.kernels.tiling import (  # noqa: E402
     attention_blocks, attention_bwd_blocks, attention_bwd_mma_blocks,
-    attention_mma_blocks, decode_block_kv, gemm_blocks, ssd_blocks)
+    attention_mma_blocks, decode_block_kv, gemm_blocks, ssd_mma_blocks)
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.layers import (  # noqa: E402
     device_kernels, device_ms, lm_layer_gemms, mean_ms)
@@ -141,10 +150,37 @@ KERNELS = {
 KERNEL_FNS = (matmul, flash_attention, flash_decode, flash_attention_fwd_lse,
               flash_attention_bwd, ssd_chunk_scan)
 # the tensor-core instructions each redesigned source must hold: the bf16
-# GEMM runs wgmma (HGMMA), the bf16 flash forward and backward mma.sync
-# (HMMA)
+# GEMM runs wgmma (HGMMA), the bf16 flash forward and backward and the SSD
+# chunk scan mma.sync (HMMA)
 TENSOR_CORE_OPS = {"matmul": ("HGMMA",), "flash_attention": ("HMMA", "HGMMA"),
-                   "flash_attention_bwd": ("HMMA", "HGMMA")}
+                   "flash_attention_bwd": ("HMMA", "HGMMA"),
+                   "ssd_scan": ("HMMA", "HGMMA")}
+# the instantiations that must build without a register spill: the
+# mma.sync kernels, whose fragments live in registers (every kernel of
+# ssd_scan, the *_mma_kernel ones of the flash sources)
+NO_SPILLS = {"flash_attention": "_mma_kernel", "flash_attention_bwd":
+             "_mma_kernel", "ssd_scan": ""}
+
+
+def spilling(log: str) -> list[str]:
+    """The functions of a ptxas -v report that spill registers."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = m.group(1)
+        elif "spill stores" in ln and " 0 bytes spill stores" not in ln:
+            out.append(cur)
+    return out
+# the SSM train phase: a gate step at full width and reduced depth (mamba2:
+# 4 layers; zamba2: 6 mamba layers and one use of the shared block), then
+# each arch at full width and depth for 3 steps of 2 x 1024 tokens (two
+# chunks of 512, so the inter-chunk carry takes part)
+SSM_GATE_LAYERS = {"mamba2-2.7b": 4, "zamba2-2.7b": 6}
+# the bf16 gradient gate of the SSM gate step, in units of the plain
+# path's own spread (see compare_ssm_train_paths)
+SSM_BF16_SPREAD = 3.0
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 1024, 3
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -741,6 +777,162 @@ def train_main_path() -> tuple[dict, dict, dict]:
     return stats, launches, resumed
 
 
+def _grad_rel_l2(gk, gp) -> tuple[float, bool]:
+    """Relative L2 of the flattened gradient ``gk`` against ``gp``, and
+    whether every leaf of ``gk`` is finite."""
+    num = den = 0.0
+    for (_, a), (_, b) in zip(tree_paths(gk), tree_paths(gp)):
+        num += float((a.float() - b.float()).square().sum())
+        den += float(b.float().square().sum())
+    finite = all(bool(torch.isfinite(g).all()) for _, g in tree_paths(gk))
+    return (num / den) ** 0.5, finite
+
+
+def compare_ssm_train_paths(arch: str, dev) -> dict:
+    """One train step of ``arch`` at full width and reduced depth
+    (``SSM_GATE_LAYERS``), batch 2 x 1024 (two chunks), kernel path
+    against plain path on the same weights and batch, in f32 and then in
+    bf16.  The kernel path runs the SSD kernel forward and
+    ``SsdChunkLocal``'s backward (the plain local stage recomputed under
+    autograd), and for zamba2 ``FlashAttention`` at head dim 160; the plain
+    path runs ``ssd_chunked`` and plain attention under autograd.
+
+    Bounds, derived as ``compare_train_paths``'s, before the first run.  In
+    f32 the paths differ in the SSD forward by the kernel's two bf16 parts
+    of x, B and C, each term within about 2^-16 of f32 arithmetic
+    (``launch.ssd_probes simulate``: rms 4.9e-5 absolute, 0.0046 of
+    ``check_ssd``'s bound at zamba2's shape), and otherwise in the order of
+    f32 sums (the backwards are f32 autograd through the same algebra, in
+    chunk-local and in chunked form; zamba2's attention as in
+    ``compare_train_paths``).  A relative change of 2^-16 ~= 1.5e-5 per SSD
+    output, added by 4 to 7 blocks as a random walk and carried back,
+    moves the loss by a few 1e-5 relative and the gradient by about 1e-4:
+    |dloss| / |loss| <= 1e-4 and gradient relative L2 <= 1e-3 keep one
+    order of headroom for the gradient, the loss gate less.  In bf16 the
+    kernel path rounds each SSD output to bf16 (``covenant_ssd`` returns
+    x's dtype, ``ssd_chunked`` f32 into the gated norm) and each scaled
+    score once (at most 2^-8): about one bf16 rounding (2^-8) per block,
+    forward and back, sqrt(2 x 4) x 2^-8 ~= 1.1e-2 for mamba2 and
+    sqrt(2 x 7) x 2^-8 ~= 1.5e-2 for zamba2, under 5e-2; the loss is
+    printed only, as in ``compare_train_paths``.  The kernel path must
+    launch the SSD kernel (and for zamba2 the flash backward).
+
+    The bf16 gate, corrected after the first run.  That run measured the
+    f32 gates as derived (mamba2: loss 8.4e-8, gradient 1.0e-4) but a bf16
+    gradient of 5.45e-2 for mamba2, past 5e-2.  The derivation above left
+    out what ``compare_ssm`` found for serving: these random-weight bf16
+    models amplify any change, through the bf16 roundings it flips (dt's
+    among them, which a chunk's cumsum carries into Γ's exponent).  Measured
+    on the same batch (``NVIDIA H100 80GB HBM3, 700.00 W``): the plain path
+    against itself with one weight of layer 0 moved one bf16 ulp differs by
+    5.0e-2 in mamba2's gradient and 0.10 in zamba2's; the kernel path with
+    its SSD kernel swapped for the plain local stage (the reference's own
+    bf16 rounding of the SSD output, ``covenant_ssd``) by 5.6e-2 and 0.11.
+    So no bound under that spread can tell a fault from rounding, and the
+    bf16 gradient is held to three times the plain path's own spread
+    (``SSM_BF16_SPREAD``), measured here on the same weights and batch, and
+    never below 5e-2: a wrong SSD or attention gradient moves the gradient
+    by its own size, far above.  The spread is printed beside it."""
+    cfg = configs.get_config(arch).replace(n_layers=SSM_GATE_LAYERS[arch])
+    rng = np.random.default_rng(4)
+    out = {}
+    for dt, loss_tol, grad_tol in (("float32", LOSS_REL_F32, GRAD_REL_L2_F32),
+                                   ("bfloat16", None, GRAD_REL_L2_BF16)):
+        c = cfg.replace(param_dtype=dt, compute_dtype=dt)
+        batch = SyntheticLM(vocab=c.vocab, seq_len=SSM_TRAIN_SEQ,
+                            global_batch=SSM_TRAIN_BATCH,
+                            seed=int(rng.integers(1 << 30))).batch(0)
+        params = get_model(c, device=dev).init_params(1)
+        res = {}
+        for fn in KERNEL_FNS:
+            fn.launches = 0
+        for attn in ("kernel", "plain"):
+            model = get_model(c, device=dev, attn=attn)
+            res[attn] = make_loss_with_accum(model.loss_fn, 1)(params, batch)
+            if attn == "kernel":
+                launches = train.kernel_launches()
+        (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+        loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        rel, finite = _grad_rel_l2(gk, gp)
+        spread = None
+        if dt == "bfloat16":
+            # the plain path against itself, one weight moved one bf16 ulp
+            lp0 = params["layers"][0]
+            moved = {**params, "layers": [
+                {**lp0, "ln": {"scale": lp0["ln"]["scale"].clone()}}]
+                + params["layers"][1:]}
+            moved["layers"][0]["ln"]["scale"][0] *= 1 + BF16_ULP
+            _, gm = make_loss_with_accum(model.loss_fn, 1)(moved, batch)
+            spread = _grad_rel_l2(gm, gp)[0]
+            grad_tol = max(grad_tol, SSM_BF16_SPREAD * spread)
+            del moved, gm
+        print(f"[ssm-train {arch} {dt}] {c.n_layers} layers, "
+              f"{SSM_TRAIN_BATCH} x {SSM_TRAIN_SEQ}: loss kernel "
+              f"{float(lk):.6f} plain {float(lp):.6f} rel {loss_rel:.3e} "
+              f"(tol {loss_tol}); gradient rel_l2 {rel:.3e} (tol "
+              f"{grad_tol:.3e}; plain path's own spread {spread}); finite "
+              f"{finite}; launches {launches}", flush=True)
+        if not finite or not np.isfinite(float(lk)):
+            raise AssertionError(f"{arch} {dt}: kernel path not finite")
+        if loss_tol is not None and loss_rel > loss_tol:
+            raise AssertionError(f"{arch} {dt}: loss rel {loss_rel} > "
+                                 f"{loss_tol}")
+        if rel > grad_tol:
+            raise AssertionError(f"{arch} {dt}: gradient rel_l2 {rel} > "
+                                 f"{grad_tol}")
+        need = ["ssd_chunk_scan"] + (["flash_attention_bwd"]
+                                     if cfg.family == "hybrid" else [])
+        if any(launches[k] <= 0 for k in need):
+            raise AssertionError(f"{arch} {dt}: kernel path launched "
+                                 f"{launches}")
+        out[dt] = dict(loss_kernel=float(lk), loss_plain=float(lp),
+                       loss_rel=loss_rel, grad_rel_l2=rel, grad_tol=grad_tol,
+                       plain_spread=spread, launches=launches)
+        del res, gk, gp, params, model
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_ssm_main_path(arch: str) -> dict:
+    """``launch.train --arch arch`` at full width and depth with its
+    defaults (kernel path, bf16) for ``SSM_TRAIN_STEPS`` steps of
+    ``SSM_TRAIN_BATCH`` x ``SSM_TRAIN_SEQ``, the counters from 0, and no
+    checkpoint: one would take tens of GB at 2.7B parameters with AdamW's
+    f32 moments.  The SSD kernel must launch, and for zamba2 the flash
+    backward, and every loss must be finite."""
+    cfg = configs.get_config(arch)
+    for fn in KERNEL_FNS:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    stats = train.main(["--arch", arch, "--seq-len", str(SSM_TRAIN_SEQ),
+                        "--global-batch", str(SSM_TRAIN_BATCH), "--steps",
+                        str(SSM_TRAIN_STEPS), "--seed", "0", "--device",
+                        "cuda", "--ckpt-dir", str(CKPT_DIR),
+                        "--ckpt-every", "0"])
+    torch.cuda.synchronize()
+    launches = train.kernel_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    rep = stats["report"]
+    print(f"[ssm-train] {arch}: {rep.steps_run} steps of {SSM_TRAIN_BATCH} x "
+          f"{SSM_TRAIN_SEQ} at full width and depth, losses "
+          f"{[round(x, 4) for x in rep.losses]}, "
+          f"{stats['ms_per_step']:.1f} ms per step after the first; "
+          f"launches {launches}; peak device memory {peak_gb:.1f} GiB",
+          flush=True)
+    need = ["matmul", "ssd_chunk_scan"] + (
+        ["flash_attention_fwd_lse", "flash_attention_bwd"]
+        if cfg.family == "hybrid" else [])
+    for name in need:
+        if launches[name] <= 0:
+            raise AssertionError(f"{arch} train never launched {name}")
+    if rep.steps_run != SSM_TRAIN_STEPS or not all(np.isfinite(rep.losses)):
+        raise AssertionError(f"{arch} train: {rep.steps_run} steps, losses "
+                             f"{rep.losses}")
+    return dict(ms_per_step=stats["ms_per_step"], losses=rep.losses,
+                step_seconds=rep.step_seconds, launches=launches,
+                peak_gib=peak_gb)
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the SSD chunk scan; phases 6 and 7: mamba2 and zamba2 served
 # ---------------------------------------------------------------------------
@@ -765,7 +957,11 @@ def _ssd_bound(x, B, n, chunk) -> tuple[float, str]:
     half of each chunk (C B^T and its product with dt * x, 2 (N + P)
     operations a visible pair) and the end state (2 L N P a chunk), against
     reading x, dt, A, B and C once and writing y_intra, the states and the
-    decay sums once (f32)."""
+    decay sums once (f32).  The products count at the bf16 tensor cores'
+    peak for both input dtypes: that is the fastest the card computes any
+    of them, and a tensor-core kernel on f32 inputs (as bf16 parts) may beat
+    the SIMT f32 peak, so that would be no bound.  The bytes term is the
+    inputs' own width."""
     bh, s, p = x.shape
     nck = s // chunk
     cells = bh * nck
@@ -774,18 +970,17 @@ def _ssd_bound(x, B, n, chunk) -> tuple[float, str]:
     nbytes = (bh * s * p * x.element_size() + bh * s * 4 + bh * 4
               + 2 * B.numel() * B.element_size()
               + bh * s * p * 4 + cells * n * p * 4 + cells * 4)
-    peak = H100["peak_bf16_flops"] if x.dtype == torch.bfloat16 \
-        else H100["peak_f32_flops"]
-    return bound(ops_count, peak, nbytes)
+    return bound(ops_count, H100["peak_bf16_flops"], nbytes)
 
 
 def check_ssd(rec: Record, dev, gen, n: int, dtype: torch.dtype,
-              label: str) -> dict:
-    """``ssd_chunk_scan`` at a served model's prefill shape (batch 4 x
-    2048 tokens, 80 heads of 64, one group, chunk 512, state ``n``) against
-    its plain version on the same inputs: the chunk-local outputs (y_intra,
-    states, decay sums) of ``ssd_chunk_local`` and the whole function's y
-    and final state.
+              label: str, batch: int = BATCH, seq: int = SSM_PROMPT) -> dict:
+    """``ssd_chunk_scan`` at a served model's prefill shape (``batch`` x
+    ``seq`` tokens, by default 4 x 2048, 80 heads of 64, one group, chunk
+    512, state ``n``; the train path gives it 2 x 1024) against its plain
+    version on the same inputs: the chunk-local outputs (y_intra, states,
+    decay sums) of ``ssd_chunk_local`` and the whole function's y and final
+    state.
 
     Bound, elementwise, stated before the first run: |kernel - plain| <=
     3 * 2^-9 * T, plus one bf16 ulp (2^-7 |plain|) on a bf16 y.  T is the
@@ -799,8 +994,15 @@ def check_ssd(rec: Record, dev, gen, n: int, dtype: torch.dtype,
     effect of one bf16 rounding (2^-9) of each of x, B and C, ten times
     that; the inputs the models give come from bf16 activations, so
     nothing finer reaches them.  A wrong index or mask moves outputs by
-    their own size, far above it."""
-    bh, bg, s, chunk = BATCH * SSD_HEADS, BATCH, SSM_PROMPT, SSD_CHUNK
+    their own size, far above it.  The tensor-core kernel rounds each
+    scaled score to bf16 once, at most 2^-8 of its term, two thirds of the
+    bound whatever the signs (``launch.ssd_probes simulate``: 0.65 at
+    mamba2's shape in bf16, 0.0046 at zamba2's in f32, two bf16 parts).
+
+    Also: the chunk-local outputs are bit-equal on two runs, and the
+    kernel's device time (``device_ms``) is read beside its CUDA-event
+    time."""
+    bh, bg, s, chunk = batch * SSD_HEADS, batch, seq, SSD_CHUNK
     x, dt, A, B, C = _ssd_inputs(dev, gen, bh, bg, s, n, dtype)
     ax, aB, aC = x.abs().float(), B.abs().float(), C.abs().float()
     err, worst = 0.0, 0.0
@@ -828,8 +1030,10 @@ def check_ssd(rec: Record, dev, gen, n: int, dtype: torch.dtype,
     finite = bool(torch.isfinite(y).all() and torch.isfinite(st).all())
     del y, st, wy, wst, ty, tst, ax, aB, aC
     torch.cuda.synchronize()
-    ms = mean_ms(lambda: ssd_chunk_local(x, dt, A, B, C, chunk=chunk),
-                 dev, 10)
+    run = lambda: ssd_chunk_local(x, dt, A, B, C, chunk=chunk)  # noqa: E731
+    same = bit_equal(run)
+    ms = mean_ms(run, dev, 10)
+    dev_ms = device_ms(run)
     plain_ms = mean_ms(lambda: ssd_chunk_local_plain(x, dt, A, B, C,
                                                      chunk=chunk), dev, 3)
     full_ms = mean_ms(lambda: ssd_chunk_scan(x, dt, A, B, C, chunk=chunk),
@@ -837,7 +1041,9 @@ def check_ssd(rec: Record, dev, gen, n: int, dtype: torch.dtype,
     full_plain_ms = mean_ms(lambda: ssd_chunk_scan_plain(
         x, dt, A, B, C, chunk=chunk), dev, 3)
     b_ms, b_by = _ssd_bound(x, B, n, chunk)
-    bl, bc = ssd_blocks(chunk, n, SSD_HEADDIM, heads=bh * (s // chunk))
+    parts = 1 if dtype == torch.bfloat16 else 2
+    bl, bc = ssd_mma_blocks(chunk, n, SSD_HEADDIM, heads=bh * (s // chunk),
+                            parts=parts)
     dt_name = "bf16" if dtype == torch.bfloat16 else "f32"
     print(f"[ssd] {label}: the whole function (kernel + torch inter-chunk "
           f"stage) {full_ms:.4f} ms, plain {full_plain_ms:.4f} ms; worst "
@@ -845,11 +1051,14 @@ def check_ssd(rec: Record, dev, gen, n: int, dtype: torch.dtype,
           flush=True)
     rec.add("ssd_chunk_scan",
             f"{label} BH{bh} S{s} N{n} P{SSD_HEADDIM} L{chunk} {dt_name} "
-            f"b{bl}x{bc}", err=err, ok=worst <= 1.0 and finite,
+            f"b{bl}x{bc} {'bit-equal' if same else 'NOT bit-equal'}",
+            err=err, ok=worst <= 1.0 and finite and same,
             tol="3*2^-9*T (+2^-7|y| bf16)", ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None, main_path=True)
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, main_path=True,
+            device_ms=dev_ms)
     return dict(case=label, worst_ratio=worst, full_ms=full_ms,
-                full_plain_ms=full_plain_ms)
+                full_plain_ms=full_plain_ms, device_ms=dev_ms,
+                bit_equal=same)
 
 
 def check_ssd_ref(rec: Record, dev, gen) -> None:
@@ -975,8 +1184,8 @@ def main() -> None:
     for name in _build.SOURCES:
         log = _build.build_logs.get(name, "")
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-        spills = sum(" 0 bytes spill stores" not in ln
-                     for ln in log.splitlines() if "spill stores" in ln)
+        spilled = spilling(log)
+        spills = len(spilled)
         sass = _build.sass_counts(name)
         print(f"[build] {name}: {len(regs)} instantiations, at most "
               f"{max(regs, default=0)} registers a thread, {spills} with "
@@ -985,6 +1194,10 @@ def main() -> None:
         if want and not any(sass[op] for op in want):
             raise AssertionError(f"{name}: no {' or '.join(want)} in its "
                                  f"SASS: not on the tensor cores")
+        bad = [f for f in spilled if name in NO_SPILLS
+               and NO_SPILLS[name] in f]
+        if bad:
+            raise AssertionError(f"{name}: tensor-core kernels spill: {bad}")
     print(smi, flush=True)
     print(f"[device] {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}, torch {torch.__version__}, "
@@ -1068,9 +1281,29 @@ def main() -> None:
         print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
               f"{ssm[arch]['tok_per_s']:.1f} tok/s", flush=True)
 
+    # phase 8: the SSM archs trained: their kernels at the train shapes
+    # (bf16 SSD inputs, zamba2's attention at head dim 160), the gate step,
+    # then launch.train at full width and depth
+    ssm_train = {}
+    for arch in SSM_ARCHS:
+        acfg = configs.get_config(arch)
+        ssd.append(check_ssd(rec, dev, gen, acfg.ssm_state, torch.bfloat16,
+                             f"{arch[:6]} train", batch=SSM_TRAIN_BATCH,
+                             seq=SSM_TRAIN_SEQ))
+        if acfg.family == "hybrid":
+            hd = 2 * acfg.d_model // acfg.n_heads
+            for check in (check_fwd_lse, check_bwd):
+                check(rec, dev, gen, SSM_TRAIN_BATCH, acfg.n_heads,
+                      acfg.n_kv_heads, SSM_TRAIN_SEQ, hd, torch.bfloat16,
+                      window=None, main_path=True)
+        gates_a = compare_ssm_train_paths(arch, dev)
+        ssm_train[arch] = dict(gates=gates_a, **train_ssm_main_path(arch))
+        print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s",
+              flush=True)
+
     # the kernels line, launches summed over every main path
-    paths = [serve_launches, train_launches] + [r["launches"]
-                                                for r in ssm.values()]
+    paths = [serve_launches, train_launches] + [
+        r["launches"] for r in (*ssm.values(), *ssm_train.values())]
     launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     kernels = []
     for name, meta in KERNELS.items():
@@ -1111,7 +1344,8 @@ def main() -> None:
             resumed_from=resumed["report"].resumed_from,
             resumed_steps=resumed["report"].steps_run, gates=gates,
             profile=train_prof),
-        ssd=ssd, ssm=ssm, launches=launches, cases=rec.cases)
+        ssd=ssd, ssm=ssm, ssm_train=ssm_train, launches=launches,
+        cases=rec.cases)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
     print(f"[done] {time.perf_counter() - t0:.1f}s", flush=True)

@@ -26,7 +26,7 @@
 // 295 operations per byte, so the tensor cores bound it, and at qwen3's
 // (S=512, D=128) the operations and the bytes are within a factor of two.
 //
-// bf16 runs on the tensor cores (fa_mma_kernel), FA2-style: 4 or 8 warps
+// bf16 runs on the tensor cores (fa_mma_kernel), FA2-style: 2, 4 or 8 warps
 // each own 16 q rows of the block; the q fragments are loaded once by
 // ldmatrix and held in registers; S = Q K^T runs as mma.sync m16n8k16 bf16
 // -> f32 and is scaled in f32 after the product, as the reference does; the
@@ -40,8 +40,9 @@
 // the H100 against the plain version (chip_smoke.py, unit-normal q, k, v):
 // worst 1.56e-2 at D128 and at D160, one bf16 ulp of an output in [2, 4),
 // where the SIMT kernel with f32 P gave 3.9e-3 and 7.8e-3.  Block sizes
-// come from the tiler (tiling.attention_mma_blocks); head dims 64, 128 and
-// 160 are built.  The cp.async, ldmatrix and mma.sync helpers are in
+// come from the tiler (tiling.attention_mma_blocks); head dims 16, 32, 64,
+// 128 and 160 and block_q 32, 64 and 128 are built, so the reference's own
+// bf16 case (D32, blocks (32, 64)) runs here.  The cp.async, ldmatrix and mma.sync helpers are in
 // mma_sync.cuh, shared with the backward.  wgmma for attention is later
 // work.
 //
@@ -350,9 +351,12 @@ __device__ __forceinline__ bool visible_mma(const FaMmaParams& p, int qpos,
 
 // D: head dim; BKV: kv rows a step; NW: warps, 16 q rows each.  Lane l of
 // warp w holds rows 16 w + l / 4 and 16 w + l / 4 + 8 of the block, columns
-// 8 j + 2 (l % 4) and + 1 of each 8-column tile j (the mma C layout).
+// 8 j + 2 (l % 4) and + 1 of each 8-column tile j (the mma C layout).  The
+// launch bounds name a minimum of one block an SM: with the thread count
+// alone ptxas held D64 x BKV32 and D32 x BKV64 at 2 and 4 warps to 96
+// registers and spilled; with it, none of the instantiations spills.
 template <int D, int BKV, int NW>
-__global__ void __launch_bounds__(NW * 32)
+__global__ void __launch_bounds__(NW * 32, 1)
 fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
@@ -561,6 +565,7 @@ template <int D, int BKV>
 int launch_mma_bq(const void* q, const void* k, const void* v, void* o,
                   float* lse, int bh, int bq, const FaMmaParams& p,
                   cudaStream_t s) {
+  if (bq == 32) return launch_mma<D, BKV, 2>(q, k, v, o, lse, bh, p, s);
   if (bq == 64) return launch_mma<D, BKV, 4>(q, k, v, o, lse, bh, p, s);
   if (bq == 128) return launch_mma<D, BKV, 8>(q, k, v, o, lse, bh, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -585,6 +590,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
       reinterpret_cast<uintptr_t>(v) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 16) return launch_mma_bkv<16>(q, k, v, o, lse, bh, bq, bkv, p, s);
+  if (d == 32) return launch_mma_bkv<32>(q, k, v, o, lse, bh, bq, bkv, p, s);
   if (d == 64) return launch_mma_bkv<64>(q, k, v, o, lse, bh, bq, bkv, p, s);
   if (d == 128) return launch_mma_bkv<128>(q, k, v, o, lse, bh, bq, bkv, p, s);
   if (d == 160) return launch_mma_bkv<160>(q, k, v, o, lse, bh, bq, bkv, p, s);

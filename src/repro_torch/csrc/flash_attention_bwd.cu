@@ -71,8 +71,12 @@
 // Measured on the H100 (launch/attn_probes.py bwd): over seeded draws at
 // D128 and D64 no output of 2 or more rounds to another bf16 value than
 // float64 arithmetic gives.  Block sizes come from
-// tiling.attention_bwd_mma_blocks; head dims 16, 32, 64, 128 and block_q,
-// block_kv of 64 and 128 are built.
+// tiling.attention_bwd_mma_blocks; head dims 16, 32, 64, 128 and 160 (zamba2's
+// shared block) and block_q, block_kv of 64 and 128 are built.  At D160 a
+// walk holds half the head dim's accumulator (kWalkCols: with dV's
+// compensation the whole one is 120 registers a thread, and ptxas spilled
+// 612 bytes), so each pass walks once per half and recomputes its S and dP;
+// a (64, 64) block's tiles take 130 KB, so one block holds an SM.
 //
 // f32 stays on the SIMT lanes (fa_bwd_dq_kernel, fa_bwd_dkv_kernel), in
 // IEEE f32 (no TF32): the f32 tiles in padded shared memory, every product
@@ -451,6 +455,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // ---------------------------------------------------------------------------
 
 constexpr int kSlice = 32;  // columns of the walked tile a warp holds at once
+// columns of the accumulator (dQ, dV or dK) one walk of a pass holds: the
+// whole head dim up to 128; above it, half, and the pass walks once per
+// half (at D160 one 16 x 160 accumulator with its compensation is 120
+// registers a thread, and ptxas spilled at the 255 a thread may hold)
+template <int D>
+constexpr int kWalkCols = D > 128 ? D / 2 : D;
 
 struct BwdMmaParams {
   int sq, sk, group;
@@ -526,18 +536,19 @@ __device__ __forceinline__ float compensated(const float (&acc)[4],
   return acc[e] + ((e & 1) ? f.y : f.x);
 }
 
-// acc (16 x D) += A (16 x 16) B (16 x D): A is k step kp of the C
-// fragments c, entering as three bf16 parts hi + mid + lo; B is the 16 rows
-// at `rows` of a tile of row stride D + kPad, read transposed.  The three
+// acc (16 x DW) += A (16 x 16) B (16 x DW): A is k step kp of the C
+// fragments c, entering as three bf16 parts hi + mid + lo; B is DW columns
+// of the 16 rows at `rows` of a tile of row stride D + kPad, read
+// transposed.  The three
 // products go into a fragment from zero, smallest part first, which an f32
 // add then adds to acc: the tensor cores' accumulation does not round to
 // nearest, and carried along a chain of hundreds of products into acc its
 // error would grow with the chain.  With kComp the add is compensated (cmp,
 // two bf16 pairs a tile), since even round-to-nearest f32 adds of 64 chunks
 // move a sum near 5 by about two of its ulps.
-template <int D, int NT, bool kComp>
-__device__ __forceinline__ void mma_split3_rows(float (&acc)[D / 8][4],
-                                                uint32_t (&cmp)[D / 8][2],
+template <int D, int DW, int NT, bool kComp>
+__device__ __forceinline__ void mma_split3_rows(float (&acc)[DW / 8][4],
+                                                uint32_t (&cmp)[DW / 8][2],
                                                 const float (&c)[NT][4],
                                                 int kp,
                                                 const __nv_bfloat16* rows,
@@ -546,7 +557,7 @@ __device__ __forceinline__ void mma_split3_rows(float (&acc)[D / 8][4],
   uint32_t a[3][4];
   a_split3_from_c(a[0], a[1], a[2], c, kp);
 #pragma unroll
-  for (int dd = 0; dd < D / 16; ++dd) {
+  for (int dd = 0; dd < DW / 16; ++dd) {
     uint32_t b[4];
     ldmatrix_x4_trans(b, smem_u32(rows + (((lane >> 3) & 1) * 8 + (lane & 7)) *
                                              LD +
@@ -616,7 +627,8 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NTH = NW * 32;
   constexpr int LD = D + kPad;
   constexpr int CH = D / 8;       // 16-byte vectors a row
-  constexpr int DT = D / 8;       // 8-column tiles of dQ
+  constexpr int DW = kWalkCols<D>;  // dQ columns a walk accumulates
+  constexpr int DT = DW / 8;      // 8-column tiles of them
   constexpr int NT = kSlice / 8;  // 8-column tiles of a slice of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BQ x LD
@@ -651,9 +663,10 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   if (steps > 0) load_kv(j_begin, 0);
   cp_async_commit();
 
-  // delta of the warp's 16 rows: CH lanes a row, one 16-byte vector each
-  {
-    constexpr int RPP = 32 / CH;  // rows a pass
+  // delta of the warp's 16 rows, one 16-byte vector of a row a lane
+  if constexpr (32 % CH == 0) {
+    // CH lanes a row, 32 / CH rows a pass
+    constexpr int RPP = 32 / CH;
     const int c = lane % CH;
 #pragma unroll
     for (int pass = 0; pass < CH / 2; ++pass) {
@@ -673,6 +686,26 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
         if (qi < p.sq) delta[static_cast<size_t>(h) * p.sq + qi] = s;
       }
     }
+  } else {
+    // a row's CH vectors do not divide the warp (D160: 20): the warp
+    // takes one row at a time, lanes past CH idle
+    for (int rr = 0; rr < 16; ++rr) {
+      const int r = warp * 16 + rr;
+      const int qi = q0 + r;
+      float s = 0.f;
+      if (qi < p.sq && lane < CH) {
+        const size_t at = qoff + static_cast<size_t>(qi) * D + lane * 8;
+        s = dot8(*reinterpret_cast<const uint4*>(dout + at),
+                 *reinterpret_cast<const uint4*>(out + at));
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) {
+        delta_s[r] = s;
+        if (qi < p.sq) delta[static_cast<size_t>(h) * p.sq + qi] = s;
+      }
+    }
   }
   __syncwarp();
 
@@ -687,61 +720,68 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     delta_r[hh] = delta_s[row_a + 8 * hh];
   }
 
-  float acc[DT][4];
-  uint32_t none[DT][2];  // uncompensated: dq seldom reaches 4 (see the header)
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int it = 0; it < steps; ++it) {
-    const int j0 = j_begin + it * BKV;
-    const int buf = it & 1;
-    if (it + 1 < steps) load_kv(j0 + BKV, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this step's k and v (and q, dout) have landed
-    __syncthreads();
-    const __nv_bfloat16* kb = ks + buf * BKV * LD;
-    const __nv_bfloat16* vb = vs + buf * BKV * LD;
-
 #pragma unroll 1
-    for (int c0 = 0; c0 < BKV; c0 += kSlice) {
-      // S = Q K^T and dP = dO V^T over this slice's 32 kv rows
-      const int a_at = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-      float s[NT][4], dp[NT][4];
-      slice_product<D, NT>(s, qs + a_at, kb + c0 * LD, lane);
-      slice_product<D, NT>(dp, dos + a_at, vb + c0 * LD, lane);
-      // P selected by the mask, then dS = P (dP - delta) scale, into dp
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hh = e >> 1;
-          const int kpos = j0 + c0 + j * 8 + 2 * (lane & 3) + (e & 1);
-          const float pe = visible_mma(p, qi[hh], kpos)
-              ? exp2f((s[j][e] * p.scale - lse_r[hh]) * kLog2e) : 0.f;
-          dp[j][e] = pe * (dp[j][e] - delta_r[hh]) * p.scale;
-        }
-      // dQ += dS K: dS's C fragments are the A operand, K rows are B's k
-      // rows
-#pragma unroll
-      for (int kp = 0; kp < kSlice / 16; ++kp)
-        mma_split3_rows<D, NT, false>(acc, none, dp, kp,
-                                      kb + (c0 + kp * 16) * LD, lane);
+  for (int h0 = 0; h0 < D; h0 += DW) {
+    if (h0 > 0) {  // walk the kv tiles again for the next columns
+      if (steps > 0) load_kv(j_begin, 0);
+      cp_async_commit();
     }
-    __syncthreads();  // every warp is done with buf before it is reloaded
-  }
-  cp_async_wait<0>();
-
-  __nv_bfloat16* dqg = dq + qoff;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    if (qi[hh] >= p.sq) continue;
+    float acc[DT][4];
+    uint32_t none[DT][2];  // uncompensated: dq seldom reaches 4 (header)
 #pragma unroll
     for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(
-          dqg + static_cast<size_t>(qi[hh]) * D + j * 8 + 2 * (lane & 3)) =
-          __floats2bfloat162_rn(acc[j][2 * hh], acc[j][2 * hh + 1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+    for (int it = 0; it < steps; ++it) {
+      const int j0 = j_begin + it * BKV;
+      const int buf = it & 1;
+      if (it + 1 < steps) load_kv(j0 + BKV, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this step's k and v (and q, dout) have landed
+      __syncthreads();
+      const __nv_bfloat16* kb = ks + buf * BKV * LD;
+      const __nv_bfloat16* vb = vs + buf * BKV * LD;
+
+#pragma unroll 1
+      for (int c0 = 0; c0 < BKV; c0 += kSlice) {
+        // S = Q K^T and dP = dO V^T over this slice's 32 kv rows
+        const int a_at = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+        float s[NT][4], dp[NT][4];
+        slice_product<D, NT>(s, qs + a_at, kb + c0 * LD, lane);
+        slice_product<D, NT>(dp, dos + a_at, vb + c0 * LD, lane);
+        // P selected by the mask, then dS = P (dP - delta) scale, into dp
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int hh = e >> 1;
+            const int kpos = j0 + c0 + j * 8 + 2 * (lane & 3) + (e & 1);
+            const float pe = visible_mma(p, qi[hh], kpos)
+                ? exp2f((s[j][e] * p.scale - lse_r[hh]) * kLog2e) : 0.f;
+            dp[j][e] = pe * (dp[j][e] - delta_r[hh]) * p.scale;
+          }
+        // dQ += dS K: dS's C fragments are the A operand, K rows are B's k
+        // rows
+#pragma unroll
+        for (int kp = 0; kp < kSlice / 16; ++kp)
+          mma_split3_rows<D, DW, NT, false>(
+              acc, none, dp, kp, kb + (c0 + kp * 16) * LD + h0, lane);
+      }
+      __syncthreads();  // every warp is done with buf before it is reloaded
+    }
+    cp_async_wait<0>();
+
+    __nv_bfloat16* dqg = dq + qoff + h0;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (qi[hh] >= p.sq) continue;
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(
+            dqg + static_cast<size_t>(qi[hh]) * D + j * 8 + 2 * (lane & 3)) =
+            __floats2bfloat162_rn(acc[j][2 * hh], acc[j][2 * hh + 1]);
+    }
   }
 }
 
@@ -766,7 +806,8 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int BKV = NW * 16;
   constexpr int NTH = NW * 32;
   constexpr int LD = D + kPad;
-  constexpr int DT = D / 8;
+  constexpr int DW = kWalkCols<D>;  // dV or dK columns a walk accumulates
+  constexpr int DT = DW / 8;
   constexpr int NT = kSlice / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BKV x LD
@@ -815,88 +856,91 @@ fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int a_at = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
 #pragma unroll
   for (int phase = 0; phase < 2; ++phase) {   // 0: dV, 1: dK
-    // dv reaches 8 at qwen3's training shape, where one bf16 ulp (0.031)
-    // is past the bf16 bound: its walk compensates its adds, dK's does not
-    float acc[DT][4];
-    uint32_t cmp[DT][2];
+#pragma unroll 1
+    for (int h0 = 0; h0 < D; h0 += DW) {      // the columns of this walk
+      // dv reaches 8 at qwen3's training shape, where one bf16 ulp (0.031)
+      // is past the bf16 bound: its walk compensates its adds, dK's does not
+      float acc[DT][4];
+      uint32_t cmp[DT][2];
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      cmp[j][0] = cmp[j][1] = 0u;
+      for (int j = 0; j < DT; ++j) {
+        cmp[j][0] = cmp[j][1] = 0u;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    }
-    if (steps > 0) load_q(0, 0);
-    cp_async_commit();
-
-    for (int t = 0; t < steps; ++t) {
-      const int i0 = i_begin + (t % nq) * BQ;
-      const int buf = t & 1;
-      if (t + 1 < steps) load_q(t + 1, buf ^ 1);
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      }
+      if (steps > 0) load_q(0, 0);
       cp_async_commit();
-      cp_async_wait<1>();  // this step's q, dout, lse, delta (and k, v)
-      __syncthreads();
-      const __nv_bfloat16* qb = qs + buf * BQ * LD;
-      const __nv_bfloat16* db = dos + buf * BQ * LD;
-      const float* lb = lse_s + buf * BQ;
-      const float* eb = dl_s + buf * BQ;
+
+      for (int t = 0; t < steps; ++t) {
+        const int i0 = i_begin + (t % nq) * BQ;
+        const int buf = t & 1;
+        if (t + 1 < steps) load_q(t + 1, buf ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();  // this step's q, dout, lse, delta (and k, v)
+        __syncthreads();
+        const __nv_bfloat16* qb = qs + buf * BQ * LD;
+        const __nv_bfloat16* db = dos + buf * BQ * LD;
+        const float* lb = lse_s + buf * BQ;
+        const float* eb = dl_s + buf * BQ;
 
 #pragma unroll 1
-      for (int c0 = 0; c0 < BQ; c0 += kSlice) {
-        // S^T over this slice's 32 q rows, then P^T selected by the mask;
-        // lse and delta are per q column
-        float s[NT][4];
-        slice_product<D, NT>(s, ks + a_at, qb + c0 * LD, lane);
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = c0 + j * 8 + 2 * (lane & 3) + (e & 1);
-            s[j][e] = visible_mma(p, i0 + col, kpos[e >> 1])
-                ? exp2f((s[j][e] * p.scale - lb[col]) * kLog2e) : 0.f;
-          }
-        if (phase == 0) {
-          // dV += P^T dO: P^T's C fragments are the A operand, dO rows
-          // B's k rows
-#pragma unroll
-          for (int kp = 0; kp < kSlice / 16; ++kp)
-            mma_split3_rows<D, NT, true>(acc, cmp, s, kp,
-                                         db + (c0 + kp * 16) * LD, lane);
-        } else {
-          // dP^T, then dS^T = P^T (dP^T - delta) scale, and dK += dS^T Q
-          float dp[NT][4];
-          slice_product<D, NT>(dp, vs + a_at, db + c0 * LD, lane);
+        for (int c0 = 0; c0 < BQ; c0 += kSlice) {
+          // S^T over this slice's 32 q rows, then P^T selected by the mask;
+          // lse and delta are per q column
+          float s[NT][4];
+          slice_product<D, NT>(s, ks + a_at, qb + c0 * LD, lane);
 #pragma unroll
           for (int j = 0; j < NT; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int col = c0 + j * 8 + 2 * (lane & 3) + (e & 1);
-              dp[j][e] = s[j][e] * (dp[j][e] - eb[col]) * p.scale;
+              s[j][e] = visible_mma(p, i0 + col, kpos[e >> 1])
+                  ? exp2f((s[j][e] * p.scale - lb[col]) * kLog2e) : 0.f;
             }
+          if (phase == 0) {
+            // dV += P^T dO: P^T's C fragments are the A operand, dO rows
+            // B's k rows
 #pragma unroll
-          for (int kp = 0; kp < kSlice / 16; ++kp)
-            mma_split3_rows<D, NT, false>(acc, cmp, dp, kp,
-                                          qb + (c0 + kp * 16) * LD, lane);
+            for (int kp = 0; kp < kSlice / 16; ++kp)
+              mma_split3_rows<D, DW, NT, true>(
+                  acc, cmp, s, kp, db + (c0 + kp * 16) * LD + h0, lane);
+          } else {
+            // dP^T, then dS^T = P^T (dP^T - delta) scale, and dK += dS^T Q
+            float dp[NT][4];
+            slice_product<D, NT>(dp, vs + a_at, db + c0 * LD, lane);
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int col = c0 + j * 8 + 2 * (lane & 3) + (e & 1);
+                dp[j][e] = s[j][e] * (dp[j][e] - eb[col]) * p.scale;
+              }
+#pragma unroll
+            for (int kp = 0; kp < kSlice / 16; ++kp)
+              mma_split3_rows<D, DW, NT, false>(
+                  acc, cmp, dp, kp, qb + (c0 + kp * 16) * LD + h0, lane);
+          }
         }
+        __syncthreads();  // every warp is done with buf before it is reloaded
       }
-      __syncthreads();  // every warp is done with buf before it is reloaded
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the next walk restages buffer 0
+      cp_async_wait<0>();
+      __syncthreads();  // the next walk restages buffer 0
 
-    __nv_bfloat16* out = phase == 0 ? dv : dk;
+      __nv_bfloat16* out = phase == 0 ? dv : dk;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      if (kpos[hh] >= p.sk) continue;
-      const size_t at = kvoff + static_cast<size_t>(kpos[hh]) * D +
-                        2 * (lane & 3);
+      for (int hh = 0; hh < 2; ++hh) {
+        if (kpos[hh] >= p.sk) continue;
+        const size_t at = kvoff + static_cast<size_t>(kpos[hh]) * D + h0 +
+                          2 * (lane & 3);
 #pragma unroll
-      for (int j = 0; j < DT; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(out + at + j * 8) =
-            phase == 0
-                ? __floats2bfloat162_rn(
-                      compensated(acc[j], cmp[j][0], cmp[j][1], 2 * hh),
-                      compensated(acc[j], cmp[j][0], cmp[j][1], 2 * hh + 1))
-                : __floats2bfloat162_rn(acc[j][2 * hh], acc[j][2 * hh + 1]);
+        for (int j = 0; j < DT; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(out + at + j * 8) =
+              phase == 0
+                  ? __floats2bfloat162_rn(
+                        compensated(acc[j], cmp[j][0], cmp[j][1], 2 * hh),
+                        compensated(acc[j], cmp[j][0], cmp[j][1], 2 * hh + 1))
+                  : __floats2bfloat162_rn(acc[j][2 * hh], acc[j][2 * hh + 1]);
+      }
     }
   }
 }
@@ -1033,6 +1077,7 @@ extern "C" int covenant_flash_attention_bwd_mma(
   BWD_MMA_D(32)
   BWD_MMA_D(64)
   BWD_MMA_D(128)
+  BWD_MMA_D(160)
 #undef BWD_MMA_D
   return static_cast<int>(cudaErrorInvalidValue);
 }

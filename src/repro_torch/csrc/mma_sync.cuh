@@ -1,7 +1,7 @@
 // Helpers shared by the kernels that stage bf16 tiles with cp.async and
 // multiply them with mma.sync on Hopper's tensor cores (flash_attention.cu,
-// flash_attention_bwd.cu) or stream tiles through a cp.async ring
-// (flash_decode.cu).  kernels/_build.py hashes this header with each source
+// flash_attention_bwd.cu, ssd_scan.cu) or stream tiles through a cp.async
+// ring (flash_decode.cu).  kernels/_build.py hashes this header with each source
 // that builds, so an edited header rebuilds every library.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): a warp's 16 x 8 f32
@@ -87,6 +87,25 @@ __device__ __forceinline__ void a_from_c(uint32_t (&a)[4],
   a[1] = pack_bf16(c[2 * kp][2], c[2 * kp][3]);
   a[2] = pack_bf16(c[2 * kp + 1][0], c[2 * kp + 1][1]);
   a[3] = pack_bf16(c[2 * kp + 1][2], c[2 * kp + 1][3]);
+}
+
+// The same, split into two bf16 parts hi + lo with hi + lo = c to about
+// 2^-17 relative: lo is what rounding c to bf16 left out, rounded in turn.
+template <int NT>
+__device__ __forceinline__ void a_split2_from_c(uint32_t (&hi)[4],
+                                                uint32_t (&lo)[4],
+                                                const float (&c)[NT][4],
+                                                int kp) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int j = 2 * kp + (r >> 1);
+    const int e = 2 * (r & 1);
+    const float x0 = c[j][e], x1 = c[j][e + 1];
+    __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    hi[r] = *reinterpret_cast<uint32_t*>(&h);
+    lo[r] = pack_bf16(x0 - hf.x, x1 - hf.y);
+  }
 }
 
 // The same, split into three bf16 parts hi + mid + lo with hi + mid + lo

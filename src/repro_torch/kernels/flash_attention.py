@@ -31,10 +31,11 @@ import torch
 
 from . import _build
 from .matmul import thread_tile
+from ..targets import H100
 from .tiling import (FLASH_BWD_MMA_BLOCKS, FLASH_BWD_MMA_HEAD_DIMS,
                      FLASH_MMA_BLOCK_KV, FLASH_MMA_BLOCK_Q,
-                     FLASH_MMA_HEAD_DIMS, flash_bwd_smem_bytes,
-                     flash_smem_bytes)
+                     FLASH_MMA_HEAD_DIMS, flash_bwd_mma_smem_bytes,
+                     flash_bwd_smem_bytes, flash_smem_bytes)
 
 NEG_INF = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -391,16 +392,20 @@ def _bwd_mma(q, k, v, out, lse, dout, *, causal, window, scale, block_q,
     the dq pass, which also writes delta = rowsum(dout * out), then the dkv
     pass) on checked, contiguous CUDA tensors.  It takes head dims
     ``FLASH_BWD_MMA_HEAD_DIMS`` and block_q, block_kv in
-    ``FLASH_BWD_MMA_BLOCKS`` (``tiling.attention_bwd_mma_blocks``) and
-    raises on others."""
+    ``FLASH_BWD_MMA_BLOCKS`` (``tiling.attention_bwd_mma_blocks``) whose
+    tiles fit one block's shared memory, and raises on others (at head dim
+    160, block (128, 128))."""
     bh, sq, d = q.shape
     bkv_rows, sk, _ = k.shape
     if d not in FLASH_BWD_MMA_HEAD_DIMS or block_q not in FLASH_BWD_MMA_BLOCKS \
-            or block_kv not in FLASH_BWD_MMA_BLOCKS:
+            or block_kv not in FLASH_BWD_MMA_BLOCKS \
+            or flash_bwd_mma_smem_bytes(block_q, block_kv, d) > \
+            H100["smem_bytes_per_block"]:
         raise ValueError(
             f"flash_attention_bwd: the bf16 kernel takes head dims "
             f"{FLASH_BWD_MMA_HEAD_DIMS} and block_q, block_kv in "
-            f"{FLASH_BWD_MMA_BLOCKS}; got {d}, {block_q}, {block_kv}")
+            f"{FLASH_BWD_MMA_BLOCKS} whose tiles fit one block's shared "
+            f"memory; got {d}, {block_q}, {block_kv}")
     # a view may start off the 16 bytes cp.async and the vector loads read
     q, k, v, out, dout = (t.clone() if t.data_ptr() % 16 else t
                           for t in (q, k, v, out, dout))

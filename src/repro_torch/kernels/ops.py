@@ -4,7 +4,7 @@ The counterpart of ``repro/kernels/ops.py`` with the same signatures, less
 ``interpret``: a CPU tensor runs each kernel's plain PyTorch version, a
 CUDA tensor launches the Hopper kernel or raises.  Block geometry defaults
 to the Covenant tiler's Algorithm-1 choice against the ``h100`` covenant
-(``tiling.gemm_blocks`` / ``attention_blocks`` / ``ssd_blocks``).
+(``tiling.gemm_blocks`` / ``attention_blocks`` / ``ssd_mma_blocks``).
 """
 from __future__ import annotations
 

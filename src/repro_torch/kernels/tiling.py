@@ -20,7 +20,7 @@ equivalent QK^T GEMM, then bounds the flash working set by shared memory;
 ``attention_bwd_blocks`` shrinks that tiling to the backward kernels'
 larger working set; ``decode_block_kv`` is its kv block for the decode
 kernel, whose split kv walk is what fills the card when batch x kv heads
-is small.  ``ssd_blocks`` sizes the SSD chunk kernel's row and column
+is small.  ``ssd_mma_blocks`` sizes the SSD chunk kernel's row and column
 blocks the same way, through the equivalent C B^T GEMM of one chunk.
 
 The bf16 GEMM and the bf16 flash forward run on the tensor cores, and their
@@ -209,12 +209,12 @@ def flash_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
 
 
 # the bf16 tensor-core flash forward (csrc/flash_attention.cu): 16 q rows a
-# warp, 4 or 8 warps; the kv tiles, head dims and fragment registers it is
-# built for; K and V rows padded by 8 bf16 so ldmatrix is free of bank
+# warp, 2, 4 or 8 warps; the kv tiles, head dims and fragment registers it
+# is built for; K and V rows padded by 8 bf16 so ldmatrix is free of bank
 # conflicts
-FLASH_MMA_BLOCK_Q = (64, 128)
+FLASH_MMA_BLOCK_Q = (32, 64, 128)
 FLASH_MMA_BLOCK_KV = (32, 64, 128)
-FLASH_MMA_HEAD_DIMS = (64, 128, 160)
+FLASH_MMA_HEAD_DIMS = (16, 32, 64, 128, 160)
 FLASH_MMA_PAD = 8
 # of the 255 registers a thread may hold, what the fragments may take; the
 # rest holds addresses, masks and the softmax state
@@ -239,14 +239,16 @@ def attention_mma_blocks(seq_q: int, seq_k: int, head_dim: int,
                          heads: int = 1) -> tuple[int, int]:
     """(block_q, block_kv) for the bf16 tensor-core flash forward: the
     Covenant tiler's flash tiling (``attention_blocks``) fitted to the
-    kernel's rules.  block_q is 64 or 128 (4 or 8 warps of 16 rows; the
-    kernel masks a ragged q edge), block_kv one of 32, 64, 128; then both
-    shrink until the fragments fit ``FLASH_MMA_FRAG_REGS`` and the bf16
-    tiles fit half the SM's shared memory, so two blocks share an SM and
-    one's copies overlap the other's products."""
+    kernel's rules.  block_q is 64 or 128 (4 or 8 warps of 16 rows, at
+    least a warpgroup's rows; the kernel masks a ragged q edge), block_kv
+    one of 32, 64, 128; then both shrink, block_q down to 32, until the
+    fragments fit ``FLASH_MMA_FRAG_REGS`` and the bf16 tiles fit half the
+    SM's shared memory, so two blocks share an SM and one's copies overlap
+    the other's products.  A caller may pass any built pair itself, as the
+    reference's tests pass (32, 64)."""
     bq, bkv = attention_blocks(seq_q, seq_k, head_dim, heads=heads)
     bq = FLASH_MMA_BLOCK_Q[-1] if bq >= FLASH_MMA_BLOCK_Q[-1] \
-        else FLASH_MMA_BLOCK_Q[0]
+        else WARPGROUP_M
     bkv = max(v for v in FLASH_MMA_BLOCK_KV
               if v <= max(bkv, FLASH_MMA_BLOCK_KV[0]))
     smem_b, _ = _budgets()
@@ -321,7 +323,7 @@ def attention_bwd_blocks(seq_q: int, seq_k: int, head_dim: int,
 # pass), the head dims and blocks it is built for (the head dims the bf16
 # backward's tests and the train path use), and the columns of the walked
 # tile a warp holds in registers at once
-FLASH_BWD_MMA_HEAD_DIMS = (16, 32, 64, 128)
+FLASH_BWD_MMA_HEAD_DIMS = (16, 32, 64, 128, 160)
 FLASH_BWD_MMA_BLOCKS = (64, 128)
 FLASH_BWD_MMA_SLICE = 32
 # of the 255 registers a thread may hold, what the backward's fragments may
@@ -359,10 +361,10 @@ def attention_bwd_mma_blocks(seq_q: int, seq_k: int, head_dim: int,
     kernel's rules.  Each is 64 or 128 (4 or 8 warps of 16 rows in the pass
     whose block it is; the kernel masks ragged edges); then the larger
     shrinks until both passes' tiles fit half the SM's shared memory
-    (``flash_bwd_mma_smem_bytes``), so two blocks share an SM.  Head dims
-    the kernel is not built for raise, 160 among them: no path trains
-    zamba2's shared block, and at 160 a (64, 64) block's tiles pass half
-    the SM's shared memory."""
+    (``flash_bwd_mma_smem_bytes``), so two blocks share an SM.  At head dim
+    160 (zamba2's shared block) even a (64, 64) block's tiles pass that
+    half, and one block holds an SM.  Head dims the kernel is not built
+    for raise."""
     if head_dim not in FLASH_BWD_MMA_HEAD_DIMS:
         raise ValueError(f"the bf16 flash backward is built for head dims "
                          f"{FLASH_BWD_MMA_HEAD_DIMS}, not {head_dim}")
@@ -389,42 +391,75 @@ def decode_block_kv(rows: int, seq_k: int, head_dim: int,
     return attention_blocks(group, seq_k, head_dim, heads=rows)[1]
 
 
-def ssd_smem_bytes(block_l: int, block_c: int, chunk: int, state: int,
-                   headdim: int) -> int:
+# the SSD chunk scan on the tensor cores (csrc/ssd_scan.cu): row blocks of
+# 16 rows a warp, the column blocks it walks, the P slab a block computes,
+# and the positions a step of its state kernel takes; operand rows padded
+# by 8 bf16 as in the flash kernels
+SSD_MMA_BLOCK_L = (64, 128)
+SSD_MMA_BLOCK_C = (32, 64)
+SSD_MMA_SLAB_P = 64
+SSD_MMA_SLAB_N = 128
+SSD_MMA_STATE_C = 64
+
+
+def _ssd_scan_floats(chunk: int) -> int:
+    return 2 * _round_up(chunk, 4)
+
+
+def ssd_mma_smem_bytes(block_l: int, block_c: int, chunk: int, state: int,
+                       parts: int = 1) -> int:
     """Shared memory of one block of the SSD intra-chunk kernel, in its
-    layout (``csrc/ssd_scan.cu``): the chunk's f32 cumsum and 32 scan
-    partials, f32 C (bl, n+1) and B (bc, n+1) tiles, the (bc, p) dt * x
-    tile and the (bl, bc+1) C B^T * Gamma tile.  The state kernel's
-    working set is a subset of it."""
-    n = state
-    floats = (chunk + 32 + block_l * (n + 1) + block_c * (n + 1)
-              + block_c * headdim + block_l * (block_c + 1))
-    return 4 * floats
+    layout (``csrc/ssd_scan.cu``, ``intra_smem``): the chunk's f32 cumsum
+    and dt, then in bf16, ``parts`` parts each (1 for bf16 inputs, 2 for
+    f32 ones), the C rows (block_l, N + 8) and two buffers of the B
+    (block_c, N + 8) and X (block_c, 64 + 8) tiles, N rounded up to 16."""
+    ldn = _round_up(state, 16) + FLASH_MMA_PAD
+    ldx = SSD_MMA_SLAB_P + FLASH_MMA_PAD
+    return 4 * _ssd_scan_floats(chunk) + 2 * parts * (
+        block_l * ldn + 2 * block_c * ldn + 2 * block_c * ldx)
 
 
-def ssd_blocks(chunk: int, state: int, headdim: int,
-               heads: int = 1) -> tuple[int, int]:
-    """(block_l, block_c): the rows of a chunk one block of the SSD kernel
-    computes, and the column block it walks them with.  The Covenant tiler
-    sizes them through the equivalent C B^T GEMM of one chunk (m = n =
-    chunk, k = state), one per (batch x head, chunk) (``heads``), as
-    ``attention_blocks`` does through QK^T; then shared memory
-    (``ssd_smem_bytes``) and the register budget of the (bl, headdim)
-    output and the (bl, bc) scores bound them."""
+def ssd_state_smem_bytes(chunk: int, state: int, parts: int = 1) -> int:
+    """Shared memory of one block of the SSD state kernel (``state_smem``):
+    the f32 cumsum and the decay weights of every position its 64-position
+    steps read, then two buffers of the B tile (64, min(N, 128) + 8) and
+    the X tile (64, 64 + 8), ``parts`` bf16 parts each."""
+    nw = min(_round_up(state, 16), SSD_MMA_SLAB_N)
+    ldx = SSD_MMA_SLAB_P + FLASH_MMA_PAD
+    floats = _round_up(chunk, 4) + _round_up(chunk, SSD_MMA_STATE_C)
+    return 4 * floats + 2 * parts * 2 * SSD_MMA_STATE_C * (
+        nw + FLASH_MMA_PAD + ldx)
+
+
+def ssd_mma_blocks(chunk: int, state: int, headdim: int, heads: int = 1,
+                   parts: int = 1) -> tuple[int, int]:
+    """(block_l, block_c) of the SSD kernel on the tensor cores: the rows of
+    a chunk one block computes and the column block it walks them with.
+    The Covenant tiler sizes them through the equivalent C B^T GEMM of one
+    chunk (m = n = chunk, k = state), one per (batch x head, chunk)
+    (``heads``), as ``attention_mma_blocks`` does through QK^T; fitted to
+    the built set (block_l 64 or 128, a whole number of 16-row warps;
+    block_c 32 or 64), then the column block and the row block shrink until
+    the block's tiles (``ssd_mma_smem_bytes``, ``parts`` bf16 parts of each
+    operand) fit half the SM's shared memory, so at least two blocks share
+    an SM.  A shape whose tiles fit no block raises."""
     bm, bn, _ = gemm_blocks(chunk, chunk, state, grid_batch=heads)
-    bl = min(bm, chunk) if chunk >= WARPGROUP_M else chunk
-    bc = min(_round_up(bn, N_UNIT), chunk)
-    smem_b, rf_b = _budgets()
-    while bl > WARPGROUP_M and bl * headdim * 4 > rf_b:
-        bl //= 2
-    while (ssd_smem_bytes(bl, bc, chunk, state, headdim) > smem_b
-           or bl * bc * 4 > rf_b):
-        if bc > N_UNIT:
-            bc = _round_up(bc // 2, N_UNIT)
-        elif bl > WARPGROUP_M:
-            bl //= 2
+    bl = SSD_MMA_BLOCK_L[-1] if bm >= SSD_MMA_BLOCK_L[-1] \
+        else SSD_MMA_BLOCK_L[0]
+    bc = SSD_MMA_BLOCK_C[-1] if bn >= SSD_MMA_BLOCK_C[-1] \
+        else SSD_MMA_BLOCK_C[0]
+    smem_b, _ = _budgets()
+    while ssd_mma_smem_bytes(bl, bc, chunk, state, parts) > smem_b // 2 - 1024:
+        if bc > SSD_MMA_BLOCK_C[0]:
+            bc = SSD_MMA_BLOCK_C[0]
+        elif bl > SSD_MMA_BLOCK_L[0]:
+            bl = SSD_MMA_BLOCK_L[0]
         else:
             break
+    if (ssd_mma_smem_bytes(bl, bc, chunk, state, parts) > smem_b
+            or ssd_state_smem_bytes(chunk, state, parts) > smem_b):
+        raise ValueError(f"ssd_chunk_scan: chunk {chunk}, state {state} in "
+                         f"{parts} part(s) exceed one block's shared memory")
     return bl, bc
 
 
@@ -437,5 +472,5 @@ __all__ = ["FLASH_BWD_MMA_BLOCKS", "FLASH_BWD_MMA_FRAG_REGS",
            "flash_bwd_mma_regs", "flash_bwd_mma_smem_bytes",
            "flash_bwd_smem_bytes", "flash_mma_regs", "flash_mma_smem_bytes",
            "flash_smem_bytes", "gemm_blocks", "gemm_fits", "gemm_stage_bytes",
-           "gemm_stages", "ssd_blocks", "ssd_smem_bytes", "wgmma_fits",
-           "wgmma_rows"]
+           "gemm_stages", "ssd_mma_blocks", "ssd_mma_smem_bytes",
+           "ssd_state_smem_bytes", "wgmma_fits", "wgmma_rows"]

@@ -5,12 +5,14 @@ step with microbatch accumulation -> synthetic data -> fault-tolerant loop
 (checkpoint/restart, NaN rollback, straggler monitor).  Runs on
 ``--device cuda`` unless asked otherwise; ``--attn kernel`` sends attention
 forward and backward through the Hopper kernels (``--attn plain``: plain
-PyTorch under autograd).  ``--smoke`` takes the reduced config, which runs
-on the CPU.  Before training it prints ``launch.layers.layer_report`` at
-``global_batch x seq_len`` tokens (the model's block GEMMs through the
-Covenant-tiled GEMM kernel; ``--accel-target none`` skips it).  The
-reference's ``--multi-pod`` and ``--model-axis`` wait for the distribution
-slice.
+PyTorch under autograd); every arch trains, the SSM archs through the SSD
+kernel's autograd Function.  ``--smoke`` takes the reduced config, which
+runs on the CPU.  ``--ckpt-every 0`` writes no checkpoint.  AdamW updates
+its moments in place (``adamw(..., inplace=True)``).  Before training it
+prints ``launch.layers.layer_report`` at ``global_batch x seq_len`` tokens
+(the model's block GEMMs through the Covenant-tiled GEMM kernel;
+``--accel-target none`` skips it).  The reference's ``--multi-pod`` and
+``--model-axis`` wait for the distribution slice.
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--ckpt-dir", default="checkpoints")
-    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--ckpt-every", type=int, default=50,
+                    help="steps between checkpoints (0: none)")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--accel-target", choices=("h100", "none"),
@@ -75,7 +78,10 @@ def main(argv: list[str] | None = None) -> dict:
           f"batch {args.global_batch} x {args.seq_len} in "
           f"{args.microbatches} microbatches")
 
-    opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps))
+    # the loop owns the optimizer state and rolls back from checkpoints, so
+    # the moments update in place (a second copy does not fit at 2.7B)
+    opt = adamw(cosine_schedule(args.lr, args.warmup, args.steps),
+                inplace=True)
     if args.compress_grads:
         opt = int8_compressed(opt, cfg)
     params = model.init_params(args.seed)

@@ -7,7 +7,11 @@ and updated params are cast back to their dtype.  The optimizer-state tree mirro
 (``{"mu": tree, "nu": tree, "step": int32 scalar}``), so a checkpoint
 holds the reference's layout.  Updates are functional, as in the
 reference: ``update`` returns new tensors and leaves its inputs as they
-were, so a rollback can reuse the old state.
+were, so a rollback can reuse the old state.  ``adamw(..., inplace=True)``
+updates the f32 moments in place instead and returns them, for a caller
+that owns its state and rolls back from checkpoints (``launch.train``): at
+2.7B parameters a second copy of the moments (21.6 GB) does not fit an
+80 GB card beside the rest of a train step.
 """
 from __future__ import annotations
 
@@ -74,7 +78,7 @@ class Optimizer:
 
 def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.1,
-          max_grad_norm: float = 1.0) -> Optimizer:
+          max_grad_norm: float = 1.0, inplace: bool = False) -> Optimizer:
     lr_fn = lr if callable(lr) else (lambda _: torch.tensor(lr, dtype=_F32))
 
     def init(params):
@@ -95,8 +99,12 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
 
         def upd(path, g, m, v, p):
             gf = g.to(_F32)
-            m2 = b1 * m + (1 - b1) * gf
-            v2 = b2 * v + (1 - b2) * torch.square(gf)
+            if inplace:  # rounded as the expressions below are
+                m2 = m.mul_(b1).add_((1 - b1) * gf)
+                v2 = v.mul_(b2).add_((1 - b2) * torch.square(gf))
+            else:
+                m2 = b1 * m + (1 - b1) * gf
+                v2 = b2 * v + (1 - b2) * torch.square(gf)
             mhat = m2 / b1c
             vhat = v2 / b2c
             delta = mhat / (torch.sqrt(vhat) + eps)

@@ -90,8 +90,10 @@ def train_loop(train_step: Callable, params, opt_state, data_iter,
     """Run ``steps`` optimizer steps with checkpoint/restart + NaN rollback.
 
     ``data_iter(step) -> batch`` must be random-access (resumable); ``cfg``
-    gives the checkpoints their reference layout.  Returns (params,
-    opt_state, LoopReport)."""
+    gives the checkpoints their reference layout.  ``ckpt_every`` 0 writes
+    no checkpoint (a run too large to save, timed or checked once); a
+    non-finite loss then raises, with nothing to roll back to.  Returns
+    (params, opt_state, LoopReport)."""
     report = LoopReport()
     state = {"params": params, "opt": opt_state}
 
@@ -101,7 +103,7 @@ def train_loop(train_step: Callable, params, opt_state, data_iter,
         state, start = _load(cfg, ckpt_dir, state, latest)
         report.resumed_from = start
         logger(f"[ft] resumed from checkpoint step {start}")
-    else:
+    elif ckpt_every > 0:
         _save(cfg, ckpt_dir, 0, state, keep)
 
     monitor = StragglerMonitor()
@@ -127,6 +129,9 @@ def train_loop(train_step: Callable, params, opt_state, data_iter,
             logger(f"[ft] straggler: step {step} took {dt * 1e3:.1f} ms")
 
         if not np.isfinite(loss):
+            if ckpt_every <= 0:
+                raise FloatingPointError(f"non-finite loss at step {step}, "
+                                         "and no checkpoint to roll back to")
             report.rollbacks += 1
             state, rb_step = _load(cfg, ckpt_dir, state, None)
             logger(f"[ft] non-finite loss at step {step}; rolled back to "
@@ -138,7 +143,7 @@ def train_loop(train_step: Callable, params, opt_state, data_iter,
         report.losses.append(loss)
         report.steps_run += 1
         step += 1
-        if step % ckpt_every == 0 or step == steps:
+        if ckpt_every > 0 and (step % ckpt_every == 0 or step == steps):
             _save(cfg, ckpt_dir, step, state, keep)
         if step % log_every == 0:
             logger(f"[train] step {step} loss {loss:.4f} "

@@ -370,9 +370,11 @@ def test_ssd_f32_on_card(cuda, case):
 @pytest.mark.parametrize("case", SSD_CARD_CASES)
 def test_ssd_bf16_on_card(cuda, case):
     """bf16 x, B, C (dt f32): the kernel's chunk-local outputs against the
-    plain version's on the same inputs, both summed in f32 (2e-3); y, which
-    both round to bf16, within one bf16 ulp (2^-7 relative) of the
-    plain y."""
+    plain version's on the same inputs, at ``chip_smoke.check_ssd``'s bound
+    (3 * 2^-9 of the terms' absolute sum: the kernel rounds each scaled
+    score to bf16 once, the plain version sums in f32); y, which both round
+    to bf16, within that and one bf16 ulp (2^-7 relative) of the plain y;
+    the states at the same bound."""
     from repro_torch.kernels.ssd_scan import (ssd_chunk_local,
                                               ssd_chunk_local_plain,
                                               ssd_chunk_scan,
@@ -389,16 +391,21 @@ def test_ssd_bf16_on_card(cuda, case):
     bf, cf = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)).transpose(
         1, 2).reshape(b * g, s, -1) for t in (B, C))
     af = A.repeat(b)
+    absolute = [t.abs() for t in (xf, bf, cf)]
     got = ssd_chunk_local(xf, dtf, af, bf, cf, chunk=ck)
     want = ssd_chunk_local_plain(xf, dtf, af, bf, cf, chunk=ck)
-    for a, w in zip(got, want):
-        torch.testing.assert_close(a, w, atol=2e-3, rtol=0)
+    terms = ssd_chunk_local_plain(absolute[0], dtf, af, *absolute[1:],
+                                  chunk=ck)
+    for a, w, t in zip(got, want, (*terms[:2], want[2].abs())):
+        assert bool(((a - w).abs() <= 3 * 2.0 ** -9 * t).all())
     y, st = ssd_chunk_scan(xf, dtf, af, bf, cf, chunk=ck)
     wy, wst = ssd_chunk_scan_plain(xf, dtf, af, bf, cf, chunk=ck)
+    ty, tst = ssd_chunk_scan_plain(absolute[0], dtf, af, *absolute[1:],
+                                   chunk=ck)
     assert y.dtype == torch.bfloat16
-    torch.testing.assert_close(y.float(), wy.float(), atol=2e-3,
-                               rtol=2 ** -7)
-    torch.testing.assert_close(st, wst, atol=2e-3, rtol=0)
+    assert bool(((y.float() - wy.float()).abs() <= 3 * 2.0 ** -9 * ty.float()
+                 + 2.0 ** -7 * wy.float().abs()).all())
+    assert bool(((st - wst).abs() <= 3 * 2.0 ** -9 * tst).all())
 
 
 def test_ssd_init_state_continuation_on_card(cuda):
@@ -419,14 +426,95 @@ def test_ssd_init_state_continuation_on_card(cuda):
     torch.testing.assert_close(st2, st_full, atol=2e-3, rtol=0)
 
 
-def test_ssd_needs_no_grad_on_card(cuda):
-    """The kernel has no backward: an input that needs a gradient raises
-    rather than returning a tensor autograd cannot follow."""
-    x, dt, A, B, C = _ssd_inputs(cuda, SSD_CARD_CASES[0])
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.covenant_ssd(x.requires_grad_(True), dt, A, B, C, chunk=16)
-    with torch.no_grad():
-        ops.covenant_ssd(x, dt, A, B, C, chunk=16)
+@pytest.mark.parametrize("case", SSD_CARD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_grad_on_card(cuda, case, dtype):
+    """The kernel path carries gradients (``SsdChunkLocal``: the kernel
+    forward, the plain local stage recomputed under autograd backward).
+    The Function alone, given random output gradients, against autograd
+    through ``ssd_chunk_local_plain``; in f32 also the whole function with
+    an init_state, against ``ssd_chunk_scan_plain`` (its loss is linear in
+    y and the final state, but the inter-chunk stage multiplies the chunk
+    states by their decays, so a gradient there sees the forward's
+    rounding: 2^-16 in f32, up to 2^-8 in bf16, which is why the whole
+    chain is held in f32).  Every input's gradient at 2e-3, and one bf16
+    ulp (2^-7 relative) of a bf16 gradient."""
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_local,
+                                              ssd_chunk_local_plain,
+                                              ssd_chunk_scan,
+                                              ssd_chunk_scan_plain)
+
+    b, h, g, ck = case["b"], case["h"], case["g"], case["chunk"]
+    x, dt, A, B, C = _ssd_inputs(cuda, case, dtype)
+    s = -(-case["s"] // ck) * ck
+    pad = s - case["s"]
+    xf = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad)).transpose(
+        1, 2).reshape(b * h, s, -1)
+    dtf = torch.nn.functional.pad(dt, (0, 0, 0, pad)).transpose(
+        1, 2).reshape(b * h, s)
+    bf, cf = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)).transpose(
+        1, 2).reshape(b * g, s, -1) for t in (B, C))
+    inputs = (xf, dtf, A.repeat(b), bf, cf)
+    nck = s // ck
+    gouts = (randn(cuda, b * h, s, case["p"]),
+             randn(cuda, b * h * nck, case["n"], case["p"]),
+             randn(cuda, b * h * nck))
+    st0 = randn(cuda, b * h, case["n"], case["p"])
+    u, w = randn(cuda, *xf.shape), randn(cuda, *st0.shape)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 2e-3
+
+    def grads(fn, whole):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (*inputs, st0)]
+        before = ssd_chunk_scan.launches
+        if whole:
+            y, st = fn(*leaves[:5], chunk=ck, init_state=leaves[5])
+            ((y.float() * u).sum() + (st * w).sum()).backward()
+        else:
+            torch.autograd.backward(fn(*leaves[:5], chunk=ck), gouts)
+        kernel = fn in (ssd_chunk_local, ssd_chunk_scan)
+        assert ssd_chunk_scan.launches == before + kernel
+        return [t.grad for t in leaves[:6 if whole else 5]]
+
+    pairs = [((ssd_chunk_local, False), (ssd_chunk_local_plain, False))]
+    if dtype == torch.float32:
+        pairs.append(((ssd_chunk_scan, True), (ssd_chunk_scan_plain, True)))
+    for kernel, plain in pairs:
+        for a, b_ in zip(grads(*kernel), grads(*plain)):
+            assert a is not None and bool(torch.isfinite(a).all())
+            torch.testing.assert_close(a.float(), b_.float(), atol=2e-3,
+                                       rtol=rtol)
+
+
+# both models' prefill shapes (mamba2 bf16 N128, zamba2 f32 N64) at one
+# batch entry, and a SMOKE chunk of 8 with N 16 and P 16
+SSD_MODEL_CASES = [(1, 2048, 80, 64, 1, 128, 512, torch.bfloat16),
+                   (1, 2048, 80, 64, 1, 64, 512, torch.float32),
+                   (2, 24, 4, 16, 1, 16, 8, torch.float32)]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype", SSD_MODEL_CASES)
+def test_ssd_kernel_bit_equal_and_bound_on_card(cuda, b, s, h, p, g, n,
+                                                chunk, dtype):
+    """The tensor-core kernel against the plain version at chip_smoke's
+    bound (|kernel - plain| <= 3 * 2^-9 of the terms' absolute sum), and
+    bit-equal over two runs (no atomics, a fixed summation order)."""
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_local,
+                                              ssd_chunk_local_plain)
+
+    x = randn(cuda, b * h, s, p, dtype=dtype)
+    dt = torch.nn.functional.softplus(randn(cuda, b * h, s))
+    A = -torch.linspace(1.0, 16.0, h, device=cuda).repeat(b)
+    B, C = randn(cuda, b * g, s, n, dtype=dtype), randn(cuda, b * g, s, n,
+                                                       dtype=dtype)
+    got = ssd_chunk_local(x, dt, A, B, C, chunk=chunk)
+    again = ssd_chunk_local(x, dt, A, B, C, chunk=chunk)
+    want = ssd_chunk_local_plain(x, dt, A, B, C, chunk=chunk)
+    terms = ssd_chunk_local_plain(x.abs(), dt, A, B.abs(), C.abs(),
+                                  chunk=chunk)
+    for a, a2, w_, t_ in zip(got, again, want, (*terms[:2], want[2].abs())):
+        assert torch.equal(a, a2)
+        assert bool(((a - w_).abs() <= 3 * 2.0 ** -9 * t_).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -555,7 +643,7 @@ MMA_FA_CASES = [(70, 130, None), (70, 130, 16), (130, 70, 0), (200, 200, 16)]
 
 @pytest.mark.parametrize("sq,sk,window", MMA_FA_CASES)
 @pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2)])
-@pytest.mark.parametrize("d", [64, 128, 160])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160])
 def test_flash_mma_bf16_on_card(cuda, d, hq, hkv, sq, sk, window):
     from repro_torch.kernels.flash_attention import \
         flash_attention_fwd_lse_plain
@@ -567,7 +655,7 @@ def test_flash_mma_bf16_on_card(cuda, d, hq, hkv, sq, sk, window):
     want = flash_attention_plain(q, k, v, window=window, q_offset=off)
     want_o, want_lse = flash_attention_fwd_lse_plain(q, k, v, window=window,
                                                      q_offset=off)
-    for bq, bkv in ((64, 64), (128, 32), (64, 128)):
+    for bq, bkv in ((64, 64), (128, 32), (64, 128), (32, 64), (32, 128)):
         before = (flash_attention.launches, flash_attention_fwd_lse.launches)
         got = flash_attention(q, k, v, window=window, block_q=bq,
                               block_kv=bkv, q_offset=off)
@@ -602,14 +690,18 @@ MMA_BWD_CASES = [(70, 130, None), (70, 130, 16), (130, 70, None),
 
 @pytest.mark.parametrize("sq,sk,window", MMA_BWD_CASES)
 @pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2)])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160])
 def test_flash_bwd_mma_bf16_on_card(cuda, d, hq, hkv, sq, sk, window):
     """Every block pair the kernel is built for, GQA, ragged edges, a
-    window, Sq > Sk; against the plain version at the bf16 bound (2e-2)."""
+    window, Sq > Sk; against the plain version at the bf16 bound (2e-2).
+    A pair whose tiles pass one block's shared memory (D160, (128, 128))
+    raises."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_fwd_lse_plain)
-    from repro_torch.kernels.tiling import FLASH_BWD_MMA_BLOCKS
+    from repro_torch.kernels.tiling import (FLASH_BWD_MMA_BLOCKS,
+                                            flash_bwd_mma_smem_bytes)
+    from repro_torch.targets import H100
 
     q = randn(cuda, hq, sq, d, dtype=torch.bfloat16)
     k = randn(cuda, hkv, sk, d, dtype=torch.bfloat16)
@@ -622,6 +714,12 @@ def test_flash_bwd_mma_bf16_on_card(cuda, d, hq, hkv, sq, sk, window):
                                      q_offset=off)
     for bq in FLASH_BWD_MMA_BLOCKS:
         for bkv in FLASH_BWD_MMA_BLOCKS:
+            if flash_bwd_mma_smem_bytes(bq, bkv, d) > \
+                    H100["smem_bytes_per_block"]:
+                with pytest.raises(ValueError):
+                    flash_attention_bwd(q, k, v, out, lse, do, block_q=bq,
+                                        block_kv=bkv, q_offset=off)
+                continue
             before = flash_attention_bwd.launches
             got = flash_attention_bwd(q, k, v, out, lse, do, window=window,
                                       block_q=bq, block_kv=bkv, q_offset=off)
@@ -642,7 +740,7 @@ def test_flash_bwd_mma_refuses_other_head_dims_on_card(cuda):
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_fwd_lse_plain)
 
-    for d in (160, 48):
+    for d in (80, 48):
         q = randn(cuda, 2, 64, d, dtype=torch.bfloat16)
         out, lse = flash_attention_fwd_lse_plain(q, q, q)
         with pytest.raises(ValueError):
@@ -744,3 +842,75 @@ def test_flash_decode_short_rows_on_card(cuda, d, hg, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
     assert bool((got[:2] == 0).all())
+
+
+def test_reference_bf16_attention_case_on_card(cuda):
+    """``tests/test_kernels.py``'s own bf16 case: B1 H2 S64 D32 with
+    caller-given blocks (32, 64), through ``covenant_attention`` on the
+    tensor-core kernel, against ``attention_ref`` at 2e-2."""
+    q, k, v = (randn(cuda, 1, 2, 64, 32, dtype=torch.bfloat16)
+               for _ in range(3))
+    before = flash_attention.launches
+    got = ops.covenant_attention(q, k, v, causal=True, blocks=(32, 64))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = ops.attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("d", [16, 32, 160])
+@pytest.mark.parametrize("blocks", [None, (32, 64)])
+def test_flash_attention_function_bf16_head_dims_on_card(cuda, d, blocks):
+    """bf16 through ``FlashAttention`` at the newly built head dims: the
+    LSE forward (tiler or caller blocks, block_q 32 among them) and the
+    backward (tiler blocks), against the plain path's output and
+    gradients at the bf16 bound (2e-2).  The output gradient is scaled to
+    keep the gradients below 2, where one bf16 ulp is inside the bound."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.models.attention import dense_attention
+
+    q0 = randn(cuda, 2, 4, 96, d, dtype=torch.bfloat16)
+    k0, v0 = (randn(cuda, 2, 2, 96, d, dtype=torch.bfloat16)
+              for _ in range(2))
+    do = (randn(cuda, 2, 4, 96, d) * 0.25).bfloat16()
+    outs, grads = {}, {}
+    for path in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q0, k0, v0)]
+        before = (flash_attention_fwd_lse.launches,
+                  flash_attention_bwd.launches)
+        if path == "kernel":
+            out = ops.covenant_attention(*leaves, causal=True, blocks=blocks)
+        else:
+            out = dense_attention(*(t.float() for t in leaves), causal=True,
+                                  window=0)
+        out.float().backward(do.float())
+        torch.cuda.synchronize()
+        if path == "kernel":
+            assert (flash_attention_fwd_lse.launches,
+                    flash_attention_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+        outs[path], grads[path] = out, [t.grad for t in leaves]
+    torch.testing.assert_close(outs["kernel"].float(), outs["plain"].float(),
+                               atol=2e-2, rtol=0)
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_train_cli_smoke_on_card(cuda, arch, tmp_path):
+    """``launch.train --smoke`` on the card: finite losses, the SSD kernel
+    (and for zamba2 the flash forward with LSE and the backward) launched,
+    and a resume from the checkpoint."""
+    from repro_torch.launch import train
+
+    args = ["--arch", arch, "--smoke", "--device", "cuda", "--seq-len",
+            "40", "--global-batch", "2", "--ckpt-dir", str(tmp_path),
+            "--accel-target", "none"]
+    out = train.main(args + ["--steps", "3"])
+    again = train.main(args + ["--steps", "4"])
+    assert out["report"].steps_run == 3 and again["report"].resumed_from == 3
+    assert all(np.isfinite(out["report"].losses + again["report"].losses))
+    assert out["launches"]["ssd_chunk_scan"] > 0
+    if arch == "zamba2-2.7b":
+        assert out["launches"]["flash_attention_fwd_lse"] > 0
+        assert out["launches"]["flash_attention_bwd"] > 0

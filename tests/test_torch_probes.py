@@ -27,3 +27,22 @@ def test_three_parts_round_like_an_exact_operand(seed):
                                     res["exact"], numel):
         assert three <= exact + 3 / n
         assert two > 2 * exact
+
+
+# the SSD kernel's operand parts (``launch/ssd_probes.py``,
+# ``csrc/ssd_scan.cu``): at a small chunk, one part of bf16 inputs keeps
+# each term within one bf16 rounding (2^-8, two thirds of the gate), f32
+# inputs need two parts for both gates and one part misses the oracle's
+
+def test_ssd_probe_parts_against_the_gates():
+    from repro_torch.launch.ssd_probes import (bf16_split, check_ssd_case,
+                                               check_ssd_ref_case)
+
+    x = torch.randn(1000, dtype=torch.float32)
+    assert torch.equal(sum(bf16_split(x, 3)), x.double())
+    small = dict(heads=2, s=256, chunk=128)
+    bf16 = check_ssd_case("mamba2", 1, **small)
+    assert bf16["ok"] and bf16["worst_ratio"] <= 2 / 3 + 1e-3
+    assert check_ssd_case("zamba2", 2, **small)["worst_ratio"] < 0.05
+    assert check_ssd_ref_case(2)["ok"]
+    assert not check_ssd_ref_case(1)["ok"]

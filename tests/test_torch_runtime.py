@@ -160,6 +160,25 @@ def test_adamw_update_equals_reference(smoke):
     assert_tree_close(cfg, state["nu"], rstate["nu"], atol=1e-9, rtol=1e-5)
 
 
+def test_adamw_inplace_matches_functional(smoke):
+    """``inplace=True`` gives the functional update's numbers bit for bit
+    and returns the moments it was given, updated."""
+    _, _, _, params, _, _, grads = smoke
+    fun, inp = adamw(1e-3), adamw(1e-3, inplace=True)
+    fstate, istate = fun.init(params), inp.init(params)
+    fparams = iparams = params
+    for _ in range(2):
+        fparams, fstate, _ = fun.update(grads, fstate, fparams)
+        mu_before = istate["mu"]
+        iparams, istate, _ = inp.update(grads, istate, iparams)
+        assert all(a is b for (_, a), (_, b) in zip(
+            tree_paths(istate["mu"]), tree_paths(mu_before)))
+    for tree_a, tree_b in ((fparams, iparams), (fstate["mu"], istate["mu"]),
+                           (fstate["nu"], istate["nu"])):
+        for (_, a), (_, b) in zip(tree_paths(tree_a), tree_paths(tree_b)):
+            assert torch.equal(a, b)
+
+
 def test_adamw_keeps_the_reference_dtypes():
     """bf16 params: f32 moments, bf16 params back, decay on matrices only
     (``ln_f``'s vector is not decayed; with zero grads only decay moves a
@@ -373,6 +392,22 @@ def test_loop_survives_process_failure(tiny_setup):
                                logger=lambda *a: None)
         assert rep.resumed_from == 4  # last checkpoint before the crash
         assert rep.steps_run == 6
+
+
+def test_loop_without_checkpoints(tiny_setup):
+    """``ckpt_every=0`` trains and writes nothing; a non-finite loss then
+    raises, having no checkpoint to roll back to."""
+    cfg, params, opt_state, step_fn, data = tiny_setup
+    with tempfile.TemporaryDirectory() as d:
+        _, o, rep = train_loop(step_fn, params, opt_state, data.batch,
+                               cfg=cfg, steps=2, ckpt_dir=d, ckpt_every=0,
+                               logger=lambda *a: None)
+        assert rep.steps_run == 2 and int(o["step"]) == 2
+        assert os.listdir(d) == []
+        with pytest.raises(FloatingPointError):
+            train_loop(step_fn, params, opt_state, data.batch, cfg=cfg,
+                       steps=2, ckpt_dir=d, ckpt_every=0, inject_nan_at=1,
+                       logger=lambda *a: None)
 
 
 def test_loop_resumes_from_a_reference_run(smoke, tiny_setup):

@@ -32,7 +32,10 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.ssd_scan import (ssd_chunk_local_plain,
                                           ssd_chunk_scan,
                                           ssd_chunk_scan_plain)
-from repro_torch.kernels.tiling import ssd_blocks, ssd_smem_bytes
+from repro_torch.kernels.tiling import (SSD_MMA_BLOCK_C, SSD_MMA_BLOCK_L,
+                                        ssd_mma_blocks, ssd_mma_smem_bytes,
+                                        ssd_state_smem_bytes)
+from repro_torch.launch import train as train_cli
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve
 from repro_torch.models import get_model, ssm
@@ -270,13 +273,91 @@ def test_ssd_chunked_matches_reference(case):
 
 
 def test_ssd_blocks_fit_the_card():
-    for chunk, n, p, heads in ((512, 128, 64, 1280), (512, 64, 64, 1280),
-                               (512, 128, 64, 4), (8, 16, 16, 12)):
-        bl, bc = ssd_blocks(chunk, n, p, heads=heads)
-        assert 1 <= bl <= chunk and 1 <= bc <= chunk
-        assert ssd_smem_bytes(bl, bc, chunk, n, p) <= \
+    """The tensor-core kernel's blocks: built sizes (16-row warps), the
+    intra block within half the SM's shared memory (two blocks an SM) and
+    the state block within one block's; bf16 inputs in one part, f32 in
+    two.  mamba2 and zamba2 prefill shapes, chip_smoke's ssd_ref check,
+    a SMOKE chunk."""
+    half = H100["smem_bytes_per_block"] // 2 - 1024
+    for chunk, n, p, heads, parts in ((512, 128, 64, 1280, 1),
+                                      (512, 64, 64, 1280, 2),
+                                      (512, 128, 64, 16, 2),
+                                      (8, 16, 16, 12, 1)):
+        bl, bc = ssd_mma_blocks(chunk, n, p, heads=heads, parts=parts)
+        assert bl in SSD_MMA_BLOCK_L and bl % 16 == 0
+        assert bc in SSD_MMA_BLOCK_C and bc % 16 == 0
+        assert ssd_mma_smem_bytes(bl, bc, chunk, n, parts) <= half
+        assert ssd_state_smem_bytes(chunk, n, parts) <= \
             H100["smem_bytes_per_block"]
-        assert bl * bc <= 256 * 64 and bl * p <= 256 * 64
+
+
+# ---------------------------------------------------------------------------
+# the SSD's gradient: the autograd Function around the chunk-local stage
+# ---------------------------------------------------------------------------
+
+
+def _grad_inputs(case):
+    x, dt, A, B, C = _ssd_inputs(case)
+    st0 = rng.standard_normal((case["b"], case["h"], case["p"],
+                               case["n"])).astype(np.float32)
+    u = rng.standard_normal(x.shape).astype(np.float32)
+    w = rng.standard_normal(st0.shape).astype(np.float32)
+    return (x, dt, A, B, C, st0), u, w
+
+
+def _port_grads(case, inputs, u, w):
+    """Gradients of sum(y u) + sum(state w) through the port's
+    ``covenant_ssd``, whose chunk-local stage is ``SsdChunkLocal`` (on a
+    CPU tensor its forward is the plain local stage)."""
+    leaves = [_t(a).requires_grad_(True) for a in inputs]
+    y, st = ops.covenant_ssd(*leaves[:5], chunk=case["chunk"],
+                             init_state=leaves[5], return_state=True)
+    ((y * _t(u)).sum() + (st * _t(w)).sum()).backward()
+    return [t.grad.numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_function_grads_match_reference_kernel(case):
+    """Each input's gradient against the reference's ``covenant_ssd``
+    (the Pallas kernel in interpret mode), along a random direction:
+    pallas_call has no reverse-mode rule, so the reference side is
+    ``jax.jvp``; each directional derivative agrees to 2e-3."""
+    inputs, u, w = _grad_inputs(case)
+    grads = _port_grads(case, inputs, u, w)
+    prim = tuple(jnp.asarray(a) for a in inputs)
+
+    def loss(x, dt, A, B, C, st0):
+        y, st = ref_ops.covenant_ssd(x, dt, A, B, C, chunk=case["chunk"],
+                                     init_state=st0, return_state=True,
+                                     interpret=True)
+        return jnp.sum(y * u) + jnp.sum(st * w)
+
+    jvp = jax.jit(lambda t: jax.jvp(loss, prim, t)[1])
+    for i, g in enumerate(grads):
+        v = rng.standard_normal(g.shape).astype(np.float32)
+        tang = tuple(jnp.asarray(v) if j == i else jnp.zeros_like(a)
+                     for j, a in enumerate(prim))
+        want = float(jvp(tang))
+        got = float(np.sum(g.astype(np.float64) * v))
+        assert abs(got - want) <= 2e-3 * max(1.0, abs(want)), (i, got, want)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_function_grads_match_ssd_chunked(case):
+    """Every gradient element against ``jax.grad`` through the reference
+    model's ``ssd_chunked`` (the reference's own training path), at 2e-3."""
+    inputs, u, w = _grad_inputs(case)
+    grads = _port_grads(case, inputs, u, w)
+
+    def loss(x, dt, A, B, C, st0):
+        y, st = ref_ssm.ssd_chunked(x, dt, A, B, C, chunk=case["chunk"],
+                                    init_state=st0.swapaxes(-1, -2))
+        return jnp.sum(y * u) + jnp.sum(st.swapaxes(-1, -2) * w)
+
+    want = jax.grad(loss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in inputs))
+    for g, wg in zip(grads, want):
+        np.testing.assert_allclose(g, np.asarray(wg), atol=2e-3, rtol=2e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -396,8 +477,8 @@ def test_forward_and_loss_match_reference(setup, reference_run, attn):
 @pytest.mark.parametrize("attn", ["kernel", "plain"])
 def test_gradients_match_reference(setup, reference_run, attn):
     """Every leaf gets a finite gradient from ``loss_fn`` on the CPU, equal
-    to ``jax.value_and_grad``'s; on the card the SSD kernel has no backward
-    (``tests/test_torch_gpu.py``)."""
+    to ``jax.value_and_grad``'s; the kernel path's SSD gradient comes from
+    ``SsdChunkLocal``, as on the card (``tests/test_torch_gpu.py``)."""
     cfg, _, _, _, params = setup
     tracked = tree_map(lambda t: t.clone().requires_grad_(True), params)
     get_model(cfg, device="cpu", attn=attn).loss_fn(
@@ -466,3 +547,20 @@ def test_serve_cli_on_cpu(arch, capsys):
     assert stats["batches"] == 2 and stats["decode_steps"] > 0
     # CPU tensors run the plain versions: no kernel is launched
     assert all(v == 0 for v in stats["launches"].values())
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_cli_on_cpu(arch, tmp_path, capsys):
+    """``launch.train`` trains the SSM archs (SMOKE, kernel path, whose
+    wrappers run their plain versions on the CPU): finite losses, then a
+    second run resumes from the first one's checkpoint."""
+    args = ["--arch", arch, "--smoke", "--device", "cpu", "--seq-len", "20",
+            "--global-batch", "2", "--ckpt-dir", str(tmp_path),
+            "--accel-target", "none"]
+    out = train_cli.main(args + ["--steps", "2"])
+    again = train_cli.main(args + ["--steps", "3"])
+    assert "[train] done: 2 steps, loss" in capsys.readouterr().out
+    assert out["report"].steps_run == 2 and again["report"].steps_run == 1
+    assert again["report"].resumed_from == 2
+    assert all(np.isfinite(out["report"].losses + again["report"].losses))
+    assert not any(out["launches"].values())

@@ -171,11 +171,12 @@ PINNED_DECODE = {
     (32, 1024, 128, 2): 64,              # qwen3 serve: 4 x 8 kv heads
     (128, 2080, 160, 1): 112,            # zamba2 serve: 4 x 32 kv heads
 }
-# (chunk, state, headdim, heads) -> (block_l, block_c)
+# (chunk, state, headdim, heads, bf16 parts) -> (block_l, block_c) of the
+# tensor-core SSD kernel
 PINNED_SSD = {
-    (512, 128, 64, 1280): (64, 128),     # mamba2 prefill: 320 rows x 4
-    (512, 64, 64, 1280): (64, 256),      # zamba2 prefill
-    (512, 128, 64, 16): (64, 64),        # chip_smoke's ssd_ref check
+    (512, 128, 64, 1280, 1): (64, 64),   # mamba2 prefill: 320 rows x 4, bf16
+    (512, 64, 64, 1280, 2): (64, 64),    # zamba2 prefill, f32
+    (512, 128, 64, 16, 2): (64, 32),     # chip_smoke's ssd_ref check, f32
 }
 
 
@@ -194,10 +195,11 @@ def test_decode_block_kv_pinned(shape):
 
 @pytest.mark.parametrize("shape", sorted(PINNED_SSD))
 def test_ssd_blocks_pinned(shape):
-    from repro_torch.kernels.tiling import ssd_blocks
+    from repro_torch.kernels.tiling import ssd_mma_blocks
 
-    chunk, n, p, heads = shape
-    assert ssd_blocks(chunk, n, p, heads=heads) == PINNED_SSD[shape]
+    chunk, n, p, heads, parts = shape
+    assert ssd_mma_blocks(chunk, n, p, heads=heads, parts=parts) == \
+        PINNED_SSD[shape]
 
 
 # every bf16 GEMM the main paths run: qwen3 prefill, decode and train rows,
@@ -385,11 +387,13 @@ def test_flash_bwd_mma_budgets():
     assert 2 * 64 + 32 <= FLASH_BWD_MMA_FRAG_REGS
     assert all(flash_bwd_mma_regs(d) <= FLASH_BWD_MMA_FRAG_REGS
                for d in FLASH_BWD_MMA_HEAD_DIMS)
-    # at 160 (not built) a (64, 64) block passes half of shared memory
+    # at 160 (zamba2's shared block) a (64, 64) block passes half of shared
+    # memory and holds an SM alone, within one block's limit
     assert 2 * (flash_bwd_mma_smem_bytes(64, 64, 160) + 1024) > SMEM_MAX
+    assert flash_bwd_mma_smem_bytes(64, 64, 160) + 1024 <= SMEM_MAX
 
 
-@pytest.mark.parametrize("head_dim", [8, 48, 96, 160, 256])
+@pytest.mark.parametrize("head_dim", [8, 48, 80, 96, 256])
 def test_attention_bwd_mma_blocks_refuse_other_head_dims(head_dim):
     from repro_torch.kernels.tiling import attention_bwd_mma_blocks
 
