@@ -10,10 +10,10 @@
    a register spill) and the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, in the
    working dtype, at the shapes the main paths give it, and times kernel,
-   plain version and one PyTorch library call with CUDA events; the decode
-   and the backward also by their kernels' device time under
-   ``torch.profiler`` (``device_ms``), and must give bit-equal results on
-   two runs;
+   plain version and one PyTorch library call with CUDA events and by
+   their kernels' device time under ``torch.profiler`` (``device_ms``);
+   the forward, the decode and the backward must give bit-equal results
+   on two runs;
 3. serve: drives ``repro_torch.launch.serve``: the Covenant GEMM report of
    the model's block GEMMs, then full-width qwen3-0.6b with seeded random
    bf16 weights serving 8 requests (batch 4, prompt 512, 32 new tokens)
@@ -49,7 +49,18 @@
    (``compare_ssm_train_paths``); then ``launch.train`` at full width and
    depth, 3 steps of 2 x 1024 with no checkpoint, the counters from 0,
    the SSD kernel (and for zamba2 the flash backward) required;
-9. prints a ``kernels`` JSON line (six kernels, launches summed over every
+9. serves gemma3-12b and stablelm-12b at full width and depth and
+   command-r-plus-104b at full width and 4 of its 64 layers (seeded random
+   bf16 weights, 8 requests, batch 4, prompt 2048, 32 new tokens, cache
+   2080), one after another, each freed before the next loads: first
+   their GEMM, attention (each window their layers use; gemma3's head dim
+   256 also in f32 and through the LSE forward) and decode shapes (each
+   cache width, bf16 and f32; and the (256, 8) group beside gemma3's),
+   then ``launch.serve`` with every counter from 0, flash attention
+   required once per layer of each batch and flash decode once per layer
+   of each decode step, the kernel path against the plain path in bf16
+   beside the plain path's own one-ulp spread, and a profiled prefill;
+10. prints a ``kernels`` JSON line (six kernels, launches summed over every
    path) and, last, the ``ok`` JSON line; the per-case details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -181,6 +192,13 @@ SSM_GATE_LAYERS = {"mamba2-2.7b": 4, "zamba2-2.7b": 6}
 # path's own spread (see compare_ssm_train_paths)
 SSM_BF16_SPREAD = 3.0
 SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 1024, 3
+# the other dense configs, served at full width with the SSM archs'
+# traffic (2048-token prompts, cache 2080): gemma3-12b and stablelm-12b at
+# full depth, command-r-plus-104b at 4 of its 64 layers (its bf16 weights
+# take 208 GB; 4 layers and the tied embedding about 19 GB); the value is
+# the layers served, 0 for all
+DENSE_ARCHS = {"gemma3-12b": 0, "stablelm-12b": 0, "command-r-plus-104b": 4}
+DENSE_PROMPT, DENSE_MAX_LEN = 2048, 2080
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -267,10 +285,14 @@ def check_gemm(rec: Record, dev, gen, m: int, n: int, k: int,
         del bound_e
     del got, want, diff
     iters = 3 if m * n * k > 1e11 else 10
-    ms = mean_ms(lambda: ops.covenant_matmul(a, b), dev, iters)
+    run = lambda: ops.covenant_matmul(a, b)  # noqa: E731
+    ms = mean_ms(run, dev, iters)
     plain_ms = mean_ms(lambda: matmul_plain(a, b), dev, iters)
     library_ms = None if dtype == torch.int8 else \
         mean_ms(lambda: torch.matmul(a, b), dev, iters)
+    dev_ms = device_ms(run) if main_path else None
+    library_dev_ms = device_ms(lambda: torch.matmul(a, b)) \
+        if main_path else None
     in_dt = {torch.bfloat16: "bf16", torch.float32: "f32",
              torch.int8: "i8"}[dtype]
     peak = {"bf16": H100["peak_bf16_flops"], "f32": H100["peak_f32_flops"],
@@ -281,43 +303,71 @@ def check_gemm(rec: Record, dev, gen, m: int, n: int, k: int,
                                            wgmma=in_dt == "bf16")))
     rec.add("matmul", f"{label} {m}x{n}x{k} {in_dt} b{blocks}", err=err,
             ok=ok, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=library_ms, main_path=main_path)
+            bound_by=b_by, library_ms=library_ms, main_path=main_path,
+            device_ms=dev_ms, library_device_ms=library_dev_ms)
 
 
 def check_attention(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=PROMPT,
-                    d=128) -> None:
-    q = torch.randn((b, hq, s, d), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
+                    d=128, *, window: int | None = None,
+                    dtype: torch.dtype = torch.bfloat16,
+                    main_path: bool = True) -> None:
+    """``ops.covenant_attention`` (the prefill's causal forward, with the
+    model's sliding ``window`` or none) against its plain version, with
+    CUDA-event and device times beside SDPA's (``enable_gqa``; a window
+    goes to it as a boolean mask)."""
+    q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
     qf, kf, vf = (q.reshape(b * hq, s, d), k.reshape(b * hkv, s, d),
                   v.reshape(b * hkv, s, d))
-    got = ops.covenant_attention(q, k, v, causal=True)
-    want = flash_attention_plain(qf, kf, vf, causal=True).reshape(q.shape)
+    run = lambda: ops.covenant_attention(  # noqa: E731
+        q, k, v, causal=True, window=window)
+    got = run()
+    want = flash_attention_plain(qf, kf, vf, causal=True,
+                                 window=window).reshape(q.shape)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    ms = mean_ms(lambda: ops.covenant_attention(q, k, v, causal=True),
-                 dev, 10)
-    plain_ms = mean_ms(lambda: flash_attention_plain(qf, kf, vf,
-                                                     causal=True), dev, 10)
-    library_ms = mean_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), dev, 10)
-    pairs = b * hq * s * (s + 1) / 2            # visible (q, k) pairs
-    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * 2
-    b_ms, b_by = bound(4.0 * pairs * d, H100["peak_bf16_flops"], nbytes)
-    bq, bkv = attention_mma_blocks(s, s, d, heads=b * hq)
+    del got, want
+    same = bit_equal(run)
+    ms = mean_ms(run, dev, 10)
+    dev_ms = device_ms(run)
+    plain_ms = mean_ms(lambda: flash_attention_plain(
+        qf, kf, vf, causal=True, window=window), dev, 10)
+    mask = None
+    if window is not None:
+        i = torch.arange(s, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+    library_ms = mean_ms(sdpa, dev, 10)
+    library_dev_ms = device_ms(sdpa)
+    del mask
+    pairs = _pairs(b, hq, s, True, window)       # visible (q, k) pairs
+    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * q.element_size()
+    bf16 = dtype == torch.bfloat16
+    b_ms, b_by = bound(4.0 * pairs * d, H100["peak_bf16_flops"] if bf16
+                       else H100["peak_f32_flops"], nbytes)
+    bq, bkv = (attention_mma_blocks if bf16 else attention_blocks)(
+        s, s, d, heads=b * hq)
     rec.add("flash_attention",
-            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal b{bq}x{bkv}", err=err,
-            ok=err <= ATTN_BF16_ATOL, tol=ATTN_BF16_ATOL, ms=ms,
+            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal w{window or 0} "
+            f"{'bf16' if bf16 else 'f32'} b{bq}x{bkv} "
+            f"{'bit-equal' if same else 'NOT bit-equal'}", err=err,
+            ok=err <= (ATTN_BF16_ATOL if bf16 else ATTN_F32_ATOL) and same,
+            tol=ATTN_BF16_ATOL if bf16 else ATTN_F32_ATOL, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=library_ms, main_path=True)
+            library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
+            library_device_ms=library_dev_ms)
 
 
 def check_decode(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=MAX_LEN,
-                 d=128, lens=(1, 300, 777, 1024)) -> None:
+                 d=128, lens=(1, 300, 777, 1024), *,
+                 dtype: torch.dtype = torch.bfloat16,
+                 main_path: bool = True) -> None:
     g = hq // hkv
-    q = torch.randn((b, hq, d), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, hkv, s, d), generator=gen, device=dev).bfloat16()
+    q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
     kv_len = torch.tensor(lens, device=dev, dtype=torch.int32)
     bkv = decode_block_kv(b * hkv, s, d, g)
     run = lambda: ops.covenant_decode_attention(  # noqa: E731
@@ -342,14 +392,17 @@ def check_decode(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=MAX_LEN,
     library_ms = mean_ms(sdpa, dev, 50)
     library_dev_ms = device_ms(sdpa)
     valid = float(kv_len.sum()) * hkv            # cache rows this data reads
-    nbytes = (2 * valid * d + 2 * b * hq * d) * 2 + b * hkv * 4
-    b_ms, b_by = bound(4.0 * valid * g * d, H100["peak_bf16_flops"], nbytes)
+    nbytes = (2 * valid * d + 2 * b * hq * d) * q.element_size() + b * 4
+    bf16 = dtype == torch.bfloat16
+    b_ms, b_by = bound(4.0 * valid * g * d, H100["peak_bf16_flops"] if bf16
+                       else H100["peak_f32_flops"], nbytes)
+    tol = ATTN_BF16_ATOL if bf16 else ATTN_F32_ATOL
     rec.add("flash_decode",
-            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} ragged split{bkv} "
-            f"{'bit-equal' if same else 'NOT bit-equal'}", err=err,
-            ok=err <= ATTN_BF16_ATOL and same, tol=ATTN_BF16_ATOL, ms=ms,
+            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} {'bf16' if bf16 else 'f32'} "
+            f"ragged split{bkv} {'bit-equal' if same else 'NOT bit-equal'}",
+            err=err, ok=err <= tol and same, tol=tol, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=library_ms, main_path=True, device_ms=dev_ms,
+            library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
             library_device_ms=library_dev_ms)
 
 
@@ -387,19 +440,22 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
     lse_err = float((lse - want_lse).abs().max())
     tol = ATTN_BF16_ATOL if dtype == torch.bfloat16 else ATTN_F32_ATOL
     del out, lse, want, want_lse
+    same = bit_equal(run)
     ms = mean_ms(run, dev, 10)
+    dev_ms = device_ms(run)
     plain_ms = mean_ms(lambda: flash_attention_fwd_lse_plain(
         q, k, v, window=window), dev, 10)
-    library_ms = None
+    library_ms = library_dev_ms = None
     if dtype == torch.bfloat16 and not window:
         # aten's flash forward, which also returns the logsumexp; it takes
         # equal head counts, so k and v are repeated before the timing
         q4 = q.reshape(b, hq, s, d)
         k4 = k.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
         v4 = v.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
-        library_ms = mean_ms(
-            lambda: torch.ops.aten._scaled_dot_product_flash_attention(
-                q4, k4, v4, 0.0, True), dev, 10)
+        lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
+            q4, k4, v4, 0.0, True)
+        library_ms = mean_ms(lib, dev, 10)
+        library_dev_ms = device_ms(lib)
     pairs = _pairs(b, hq, s, True, window)
     nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * q.element_size() \
         + b * hq * s * 4
@@ -409,10 +465,12 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
     rec.add("flash_attention_fwd_lse",
             f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal w{window or 0} {dt} "
-            f"b{bq}x{bkv} (lse err {lse_err:.1e})", err=err,
-            ok=err <= tol and lse_err <= LSE_ATOL, tol=tol, ms=ms,
+            f"b{bq}x{bkv} (lse err {lse_err:.1e}) "
+            f"{'bit-equal' if same else 'NOT bit-equal'}", err=err,
+            ok=err <= tol and lse_err <= LSE_ATOL and same, tol=tol, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=library_ms, main_path=main_path)
+            library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
+            library_device_ms=library_dev_ms)
 
 
 def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
@@ -491,7 +549,12 @@ def compare_paths(cfg, dev, prompt: int = PROMPT, max_len: int = MAX_LEN,
       points; each of the 28 layers adds a relative perturbation of about
       one bf16 rounding (2^-8) to the residual stream, and such independent
       perturbations grow like a random walk, sqrt(28) * 2^-8 ~= 2.1e-2.
-    * mamba2-2.7b and zamba2-2.7b in f32, 5e-2 (see ``compare_ssm``)."""
+    * mamba2-2.7b and zamba2-2.7b in f32, 5e-2 (see ``compare_ssm``).
+    * gemma3-12b, stablelm-12b and command-r-plus-104b (4 layers) in bf16,
+      5e-2, by qwen3's rule: sqrt(48) * 2^-8 ~= 2.7e-2, sqrt(40) * 2^-8
+      ~= 2.5e-2 and sqrt(4) * 2^-8 ~= 7.8e-3; each model's plain path
+      against itself with one weight moved one bf16 ulp is printed beside
+      it (``compare_dense``)."""
     kmodel = get_model(cfg, device=dev, attn="kernel")
     pmodel = get_model(cfg, device=dev, attn="plain")
     params = kmodel.init_params(1)
@@ -1101,16 +1164,17 @@ def check_ssd_ref(rec: Record, dev, gen) -> None:
             library_ms=None, main_path=False)
 
 
-def profile_prefill(model, params) -> dict:
+def profile_prefill(model, params, prompt: int = SSM_PROMPT,
+                    max_len: int = SSM_MAX_LEN) -> dict:
     """One prefill of the served shape (kernel path) under the profiler,
     after one outside it."""
     rng = np.random.default_rng(2)
     toks = torch.as_tensor(rng.integers(2, model.cfg.vocab,
-                                        (BATCH, SSM_PROMPT)),
+                                        (BATCH, prompt)),
                            device=model.device)
 
     def run():
-        cache = model.init_cache(BATCH, SSM_MAX_LEN)
+        cache = model.init_cache(BATCH, max_len)
         return model.prefill(params, {"tokens": toks}, cache)[0]
 
     run()
@@ -1165,6 +1229,90 @@ def serve_ssm(rec: Record, dev, gen, arch: str) -> dict:
                 seconds=stats["seconds"], batch_seconds=stats["batch_seconds"],
                 launches=launches, required=expected, compare=compared,
                 profile_prefill=prof)
+
+
+def compare_dense(cfg, dev) -> tuple[dict, object, dict]:
+    """A dense config at full width, kernel path against plain path in
+    bf16 on the same weights, gated at ``LOGITS_REL_L2`` (bound derived in
+    ``compare_paths``), then the plain path against itself with one weight
+    of layer 0 (its first norm scale entry) moved by one bf16 ulp: the
+    model's own spread under a change of one rounding, printed beside the
+    gate.  Returns (the comparisons, the kernel-path model, its
+    weights)."""
+    rel, agree, model, params = compare_paths(cfg, dev, DENSE_PROMPT,
+                                              DENSE_MAX_LEN)
+    pmodel = get_model(cfg, device=dev, attn="plain")
+    lp0 = params["layers"][0]
+    moved = {**params, "layers": [
+        {**lp0, "ln1": {**lp0["ln1"], "scale": lp0["ln1"]["scale"].clone()}}]
+        + params["layers"][1:]}
+    moved["layers"][0]["ln1"]["scale"][0] *= 1 + BF16_ULP
+    srel, sagree = _compare(pmodel, pmodel, moved, params, DENSE_PROMPT,
+                            DENSE_MAX_LEN, f"{cfg.name} bf16 plain, one "
+                            "weight moved one ulp,", None)
+    del moved, pmodel
+    return (dict(rel_l2=rel, argmax_agree=agree,
+                 plain_spread=dict(rel_l2=srel, argmax_agree=sagree)),
+            model, params)
+
+
+def serve_dense(rec: Record, dev, gen, arch: str, n_layers: int) -> dict:
+    """A dense config at full width (``n_layers`` layers, 0 for all): its
+    kernels at the served shapes (the layer report's GEMMs, the prefill's
+    attention with each window its layers use, the decode against each
+    cache width, bf16 on the main path and f32 beside it), then
+    ``launch.serve`` with every counter from 0, the launch counts required
+    (flash attention once per layer of each batch, flash decode once per
+    layer of each decode step), kernel path against plain path, and a
+    profiled prefill."""
+    cfg = configs.get_config(arch)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    for g in lm_layer_gemms(cfg, BATCH):
+        check_gemm(rec, dev, gen, g.tokens, g.n, g.k, torch.bfloat16,
+                   f"{arch[:6]} decode {g.name.split('_', 3)[-1]}",
+                   main_path=True)
+    hd = cfg.hd
+    for window in ([cfg.window, None] if cfg.window else [None]):
+        check_attention(rec, dev, gen, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                        s=DENSE_PROMPT, d=hd, window=window)
+    widths = sorted({min(cfg.window, DENSE_MAX_LEN) if cfg.window
+                     else DENSE_MAX_LEN, DENSE_MAX_LEN})
+    for dtype in (torch.bfloat16, torch.float32):
+        for width in widths:
+            check_decode(rec, dev, gen, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                         s=width, d=hd, lens=(1, 700, width - 31, width),
+                         dtype=dtype, main_path=dtype == torch.bfloat16)
+    args = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
+            str(DENSE_PROMPT), "--max-new", str(MAX_NEW), "--requests",
+            str(REQUESTS), "--max-len", str(DENSE_MAX_LEN), "--seed", "0",
+            "--device", "cuda", "--attn", "kernel", "--n-layers",
+            str(n_layers)]
+    for fn in KERNEL_FNS:
+        fn.launches = 0
+    stats = serve.main(args)
+    torch.cuda.synchronize()
+    launches = serve.kernel_launches()
+    expected = {"flash_attention": cfg.n_layers * stats["batches"],
+                "flash_decode": cfg.n_layers * stats["decode_steps"]}
+    print(f"[serve] {arch} ({cfg.n_layers} layers) launches on the main "
+          f"path: {launches}; required {expected} ({stats['batches']} "
+          f"batches, {stats['decode_steps']} decode steps)", flush=True)
+    for name, n in expected.items():
+        if launches[name] != n or n <= 0:
+            raise AssertionError(f"{arch}: {name} launched {launches[name]}"
+                                 f" times, not {n}")
+    if launches["matmul"] <= 0:
+        raise AssertionError(f"{arch}: the layer report never launched "
+                             "matmul")
+    compared, model, params = compare_dense(cfg, dev)
+    prof = profile_prefill(model, params, DENSE_PROMPT, DENSE_MAX_LEN)
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(n_layers=cfg.n_layers, tok_per_s=stats["tok_per_s"],
+                new_tokens=stats["new_tokens"], seconds=stats["seconds"],
+                batch_seconds=stats["batch_seconds"], launches=launches,
+                required=expected, compare=compared, profile_prefill=prof)
 
 
 def main() -> None:
@@ -1301,9 +1449,31 @@ def main() -> None:
         print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s",
               flush=True)
 
+    # phase 9: the other dense configs, one after another: gemma3's head
+    # dim 256 also in f32 and through the LSE forward (training's), both
+    # windows; the decode at (256, 8), paligemma's group, beside them
+    dense = {}
+    for arch, n_layers in DENSE_ARCHS.items():
+        if arch == "gemma3-12b":
+            for dtype in (torch.bfloat16, torch.float32):
+                for window in (1024, None):
+                    if dtype == torch.float32:
+                        check_attention(rec, dev, gen, s=DENSE_PROMPT, d=256,
+                                        window=window, dtype=dtype,
+                                        main_path=False)
+                    check_fwd_lse(rec, dev, gen, BATCH, 16, 8, DENSE_PROMPT,
+                                  256, dtype, window=window, main_path=False)
+                check_decode(rec, dev, gen, hq=8, hkv=1, s=DENSE_MAX_LEN,
+                             d=256, lens=(1, 700, 2049, DENSE_MAX_LEN),
+                             dtype=dtype, main_path=False)
+        dense[arch] = serve_dense(rec, dev, gen, arch, n_layers)
+        print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
+              f"{dense[arch]['tok_per_s']:.1f} tok/s", flush=True)
+
     # the kernels line, launches summed over every main path
     paths = [serve_launches, train_launches] + [
-        r["launches"] for r in (*ssm.values(), *ssm_train.values())]
+        r["launches"] for r in (*ssm.values(), *ssm_train.values(),
+                                *dense.values())]
     launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     kernels = []
     for name, meta in KERNELS.items():
@@ -1326,7 +1496,7 @@ def main() -> None:
             library_ms=None if None in lib else sum(lib),
             device_ms=None if None in dev_ms else sum(dev_ms),
             library_device_ms=None if None in lib_dev else sum(lib_dev),
-            shapes=len(main), checks=len(cases),
+            shapes=[c["case"] for c in main], checks=len(cases),
             checks_ok=all(c["ok"] for c in cases)))
     print(json.dumps({"kernels": kernels}), flush=True)
     for c in rec.cases:
@@ -1344,7 +1514,8 @@ def main() -> None:
             resumed_from=resumed["report"].resumed_from,
             resumed_steps=resumed["report"].steps_run, gates=gates,
             profile=train_prof),
-        ssd=ssd, ssm=ssm, ssm_train=ssm_train, launches=launches,
+        ssd=ssd, ssm=ssm, ssm_train=ssm_train, dense=dense,
+        launches=launches,
         cases=rec.cases)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

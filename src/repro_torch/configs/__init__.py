@@ -1,16 +1,22 @@
 """Config registry: ``--arch <id>`` lookup.
 
-The counterpart of ``repro/configs/__init__.py``.  It holds the
-architectures the port serves so far; the others come with their slices.
+The counterpart of ``repro/configs/__init__.py``.  It holds the dense
+archs (qwen3-0.6b, stablelm-12b, gemma3-12b, command-r-plus-104b) and the
+SSM ones (mamba2-2.7b, zamba2-2.7b) under the reference's ids; the MoE,
+encoder-decoder and VLM archs come with their slices.
 """
 from __future__ import annotations
 
 from repro_torch.models.config import ArchConfig
 
-from . import mamba2_2_7b, qwen3_0_6b, zamba2_2_7b
+from . import (command_r_plus_104b, gemma3_12b, mamba2_2_7b, qwen3_0_6b,
+               stablelm_12b, zamba2_2_7b)
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0_6b,
+    "stablelm-12b": stablelm_12b,
+    "gemma3-12b": gemma3_12b,
+    "command-r-plus-104b": command_r_plus_104b,
     "mamba2-2.7b": mamba2_2_7b,
     "zamba2-2.7b": zamba2_2_7b,
 }

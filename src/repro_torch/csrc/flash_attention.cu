@@ -27,8 +27,11 @@
 // (S=512, D=128) the operations and the bytes are within a factor of two.
 //
 // bf16 runs on the tensor cores (fa_mma_kernel), FA2-style: 2, 4 or 8 warps
-// each own 16 q rows of the block; the q fragments are loaded once by
-// ldmatrix and held in registers; S = Q K^T runs as mma.sync m16n8k16 bf16
+// each own 16 q rows of the block; up to head dim 160 the q fragments are
+// loaded once by ldmatrix and held in registers, and at 256 they stay in
+// shared memory and are loaded for each k step, as FA2 does there: the
+// 16 x 256 f32 O accumulator alone takes 128 registers a thread, and held q
+// fragments would add 64 more; S = Q K^T runs as mma.sync m16n8k16 bf16
 // -> f32 and is scaled in f32 after the product, as the reference does; the
 // row max and sum reduce over the 4 lanes that share a row; P is rounded to
 // bf16 in registers and fed as the A operand of P V, with V read by
@@ -41,8 +44,10 @@
 // worst 1.56e-2 at D128 and at D160, one bf16 ulp of an output in [2, 4),
 // where the SIMT kernel with f32 P gave 3.9e-3 and 7.8e-3.  Block sizes
 // come from the tiler (tiling.attention_mma_blocks); head dims 16, 32, 64,
-// 128 and 160 and block_q 32, 64 and 128 are built, so the reference's own
-// bf16 case (D32, blocks (32, 64)) runs here.  The cp.async, ldmatrix and mma.sync helpers are in
+// 128, 160 and 256 and block_q 32, 64 and 128 are built with block_kv 32,
+// 64 and 128 where the tiles fit one block's shared memory (at 256 block_kv
+// 32 and 64), so the reference's own bf16 case (D32, blocks (32, 64)) and
+// gemma3's head dim run here.  The cp.async, ldmatrix and mma.sync helpers are in
 // mma_sync.cuh, shared with the backward.  wgmma for attention is later
 // work.
 //
@@ -62,6 +67,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
+// the largest head dim whose q fragments the bf16 kernel holds in registers
+constexpr int kHoldQMaxD = 160;
+// shared memory one block may take (the H100's opt-in maximum)
+constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
@@ -414,14 +423,18 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
   if (steps > 0) load_kv(j_begin, 0);
   cp_async_commit();
 
-  // q fragments, once: A operand (16 x 16) of each k step
-  uint32_t qa[KT][4];
+  // q fragments: A operand (16 x 16) of each k step, loaded once and held
+  // up to kHoldQMaxD, else loaded from shared memory at each k step
+  constexpr bool kHoldQ = D <= kHoldQMaxD;
+  const uint32_t q_at = smem_u32(qs + (warp * 16 + (lane & 15)) * LD +
+                                 (lane >> 4) * 8);
+  uint32_t qa[kHoldQ ? KT : 1][4];
   cp_async_wait<0>();
   __syncthreads();
+  if constexpr (kHoldQ) {
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-    ldmatrix_x4(qa[kk], smem_u32(qs + (warp * 16 + (lane & 15)) * LD +
-                                 kk * 16 + (lane >> 4) * 8));
+    for (int kk = 0; kk < KT; ++kk) ldmatrix_x4(qa[kk], q_at + kk * 32);
+  }
 
   float oacc[DT][4];
 #pragma unroll
@@ -451,13 +464,20 @@ fa_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
+      uint32_t a[4];
+      if constexpr (kHoldQ) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qa[kk][e];
+      } else {
+        ldmatrix_x4(a, q_at + kk * 32);
+      }
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t b[4];
         ldmatrix_x4(b, smem_u32(kb + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LD +
                                 kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
+        mma_bf16(s[2 * np], a, b[0], b[1]);
+        mma_bf16(s[2 * np + 1], a, b[2], b[3]);
       }
     }
 
@@ -549,16 +569,22 @@ template <int D, int BKV, int NW>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, const FaMmaParams& p, cudaStream_t stream) {
   constexpr int smem = (NW * 16 + 4 * BKV) * (D + kPad) * 2;
-  auto kernel = fa_mma_kernel<D, BKV, NW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.sq + NW * 16 - 1) / (NW * 16), bh);
-  kernel<<<grid, NW * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      p);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (smem > kMaxSmem) {
+    // not built: the tiles pass one block's shared memory
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    auto kernel = fa_mma_kernel<D, BKV, NW>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((p.sq + NW * 16 - 1) / (NW * 16), bh);
+    kernel<<<grid, NW * 32, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+        lse, p);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <int D, int BKV>
@@ -595,6 +621,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (d == 64) return launch_mma_bkv<64>(q, k, v, o, lse, bh, bq, bkv, p, s);
   if (d == 128) return launch_mma_bkv<128>(q, k, v, o, lse, bh, bq, bkv, p, s);
   if (d == 160) return launch_mma_bkv<160>(q, k, v, o, lse, bh, bq, bkv, p, s);
+  if (d == 256) return launch_mma_bkv<256>(q, k, v, o, lse, bh, bq, bkv, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,26 +6,31 @@
 // online softmax in f32 and the `l == 0` guard (kv_len 0 gives zeros).
 //
 // Bound on the H100: reading the kv_len valid rows of k and v once
-// (2 * rows * kv_len * D * bytes); 4 * Hg * D operations a key are far
-// below the 295 a byte where the tensor cores would bound it, and one kv
-// head has 1 or 2 query rows, under the 16 an mma needs.  So the kernel
-// stays on the SIMT lanes and its design is about the memory system.
+// (2 * rows * kv_len * D * bytes); 4 * Hg * D operations a key stay below
+// the 295 a byte where the tensor cores would bound it for every group the
+// reference's configs use (at most 12 heads, 24 operations a byte), so the
+// kernel stays on the SIMT lanes and its design is about the memory system.
 //
 // On the TPU one grid row per (batch, kv head) walks the kv blocks in order.
 // At the qwen3 decode shape (batch 4 x 8 kv heads) that is 32 rows for 132 SMs,
 // so here each row's kv walk is split (block_kv keys a split,
-// tiling.decode_block_kv) and each (split, row) pair is a block.  Inside a
-// block each warp streams its own tiles of keys, every fourth tile of the
-// split, through a ring of 3 stages in shared memory filled by cp.async in
-// 16-byte vectors, so two tiles are in flight while it computes on a third.  A
-// tile holds 32 / L keys, one for each group of L lanes; the L lanes of a group
-// take the key's 16-byte chunks in turn (4 lanes, or 8 or 16 where the query
-// and accumulator registers of 4 would pass 32 a thread, fewer for a row of
-// fewer chunks), and a score is their partial dot products summed over a
-// log2(L)-step shuffle tree.  The online softmax runs once a tile: the tile's
-// max over the warp, one rescale of the accumulator, one exp a key.  Scores are
-// kept in log2 units (q is scaled by scale * log2(e) once), so each exp is one
-// exp2.
+// tiling.decode_block_kv) and each (split, row) pair is a block.  Its four
+// warps share one ring of 3 stages in shared memory, filled by all of them
+// with cp.async in 16-byte vectors, so each key and value is read from device
+// memory once for its kv head whatever the group, and two stages are in
+// flight while the warps compute on a third.  The group's Hg heads go to
+// HGG = min(4, the largest power of two <= Hg) head groups of warps, HPW
+// = ceil(Hg / HGG) heads a warp (head hgi + j * HGG); the 4 / HGG warps of a
+// head group take the stage's keys in turn, a round of 32 / L keys each.  A
+// key's 16-byte chunks go to L lanes (the fewest of 4, 8, 16, 32 that hold a
+// warp's queries and accumulators in at most 32 floats each a lane, no more
+// than the row has chunks; a lane takes chunks c, c + L, ... and the last
+// round may leave some lanes idle), and a score is their partial dot
+// products summed over a log2(L)-step shuffle tree.  So the registers a
+// thread holds stay bounded for every group from 1 to 16 and every head
+// dim.  The online softmax runs once a round: the round's max over the warp,
+// one rescale of the accumulator, one exp a key.  Scores are kept in log2
+// units (q is scaled by scale * log2(e) once), so each exp is one exp2.
 //
 // The split combine is fused into the same launch and is deterministic: each
 // block writes its partial max, sum and unnormalised accumulator, and the last
@@ -49,6 +54,9 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kStages = 3;
+constexpr int kStageKeys = 16;  // a stage holds at least this many keys
+constexpr int kCombineSplits = 32;  // split weights the combine holds at once
+constexpr int kMaxGroup = 16;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ void unpack(const uint4& raw, float (&f)[8],
@@ -75,94 +83,103 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// lanes a key: the fewest of 4, 8, 16 that hold the Hg queries and
-// accumulators in at most 32 floats each a lane, cut to the largest power
-// of two that divides the row's 16-byte chunks (1 or 2 for a short row);
-// the kernel is built where a lane then holds at most 96 of each
-// (flash_attention.py mirrors the rule).  At 32 the qwen3 shape (Hg 2,
-// D128) takes 8 lanes a key and about 100 registers a thread, so four
-// blocks share an SM and its whole grid is resident at once.
-static_assert(kWarps >= 4, "the combine takes a warp a head, and HG <= 4");
+// head groups of warps for a group of hg heads: min(4, the largest power of
+// two <= hg); each warp holds ceil(hg / head_groups(hg)) of them
+__host__ __device__ constexpr int head_groups(int hg) {
+  return hg >= 4 ? 4 : hg >= 2 ? 2 : 1;
+}
 
-template <typename T, int D, int HG>
+__host__ __device__ constexpr int pow2_ceil(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// D: head dim; HPW: heads a warp holds.  L lanes a key: the fewest of 4, 8,
+// 16, 32 whose chunks a lane (CPL of them) hold HPW heads' queries in at
+// most 32 floats, cut to the row's chunks rounded up to a power of two.  At
+// the qwen3 shape (Hg 2, D128: one head a warp) that is 4 lanes a key and
+// about 100 registers a thread.
+template <typename T, int D, int HPW>
 struct Shape {
   static constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // a chunk
   static constexpr int CH = D / EPC;                             // a row
-  static constexpr int LR = HG * D <= 32 * 4 ? 4 : HG * D <= 32 * 8 ? 8 : 16;
-  static constexpr int P2 = CH & -CH;
-  static constexpr int L = LR < P2 ? LR : P2;
-  static constexpr bool ok = D % EPC == 0 && HG * D <= 96 * L;
-  static constexpr int CPL = ok ? CH / L : 1;   // chunks a lane
-  static constexpr int E = CPL * EPC;           // elements a lane
-  static constexpr int TK = 32 / L;             // keys a warp tile
-  static constexpr int TILE = TK * D;           // elements of a k (v) tile
+  static constexpr int cpl(int l) { return (CH + l - 1) / l; }
+  static constexpr int LQ = HPW * cpl(4) * EPC <= 32    ? 4
+                            : HPW * cpl(8) * EPC <= 32  ? 8
+                            : HPW * cpl(16) * EPC <= 32 ? 16
+                                                        : 32;
+  static constexpr int L = LQ < pow2_ceil(CH) ? LQ : pow2_ceil(CH);
+  static constexpr int CPL = cpl(L);           // chunks a lane, at most
+  static constexpr int E = CPL * EPC;          // elements a lane, a head
+  static constexpr int TK = 32 / L;            // keys a warp's round
+  static_assert(D % EPC == 0 && HPW * E <= 32, "decode shape");
 };
 
-// bytes before the warps' states: the ring, or the combine's copy of a
-// row's partials where that is larger, rounded to 16
-template <typename T, int D, int HG>
-__host__ __device__ constexpr int ring_bytes(int n_split) {
-  const int ring = kWarps * kStages * 2 * Shape<T, D, HG>::TILE *
-                   static_cast<int>(sizeof(T));
-  const int parts = n_split * HG * (D + 2) * 4;
-  return ((ring > parts ? ring : parts) + 15) / 16 * 16;
+// shared memory: the ring (kStages x k and v of `sk` keys), the warps'
+// states ((kgn, hg) max and sum, (kgn, hg, D) accumulators), the row's
+// (hg,) max and 1 / sum and the combine's (kCombineSplits, hg) weights
+template <typename T, int D>
+__host__ __device__ constexpr int ring_bytes(int sk) {
+  return kStages * 2 * sk * D * static_cast<int>(sizeof(T));
 }
 
 // grid (n_split, rows); block kWarps * 32 threads.
-// part: (rows, n_split, HG, D + 2) f32, the accumulator then max and sum.
-template <typename T, int D, int HG>
-__global__ void
+// part: (rows, n_split, hg, D + 2) f32, the accumulator then max and sum.
+template <typename T, int D, int HPW>
+__global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const int* __restrict__ kv_len,
               int kv_heads, T* __restrict__ out, float* __restrict__ part,
-              int* __restrict__ counters, int s, int block_kv, float qscale) {
-  using S = Shape<T, D, HG>;
+              int* __restrict__ counters, int s, int hg, int block_kv,
+              float qscale) {
+  using S = Shape<T, D, HPW>;
   constexpr int EPC = S::EPC, CH = S::CH, L = S::L, CPL = S::CPL, E = S::E;
-  constexpr int TK = S::TK, TILE = S::TILE;
+  constexpr int TK = S::TK;
+  const int hgg = head_groups(hg);
+  const int kgn = kWarps / hgg;         // key groups: warps of a head group
+  const int bt = kgn * TK;              // keys of a round of every warp
+  const int sk = bt > kStageKeys ? bt : kStageKeys;   // keys a stage
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int split = blockIdx.x;
-  const int n_split = gridDim.x;
-  // the ring (kWarps x kStages x 2 x TILE), which the combine reuses for
-  // the row's partials, then the warps' states and the split weights
-  T* ring_all = reinterpret_cast<T*>(smem_raw);
-  float* stage = reinterpret_cast<float*>(smem_raw);
-  float* wm = reinterpret_cast<float*>(
-      smem_raw + ring_bytes<T, D, HG>(n_split));
-  float* wl = wm + kWarps * HG;                   // (kWarps, HG)
-  float* wacc = wl + kWarps * HG;                 // (kWarps, HG, D)
-  float* cw = wacc + kWarps * HG * D;             // (n_split, HG) weights
-  float* cs = cw + n_split * HG;                  // (HG,) max, then 1 / sum
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* wm = reinterpret_cast<float*>(smem_raw + ring_bytes<T, D>(sk));
+  float* wl = wm + kgn * hg;                      // (kgn, hg)
+  float* wacc = wl + kgn * hg;                    // (kgn, hg, D)
+  float* cm = wacc + kgn * hg * D;                // (hg,) the row's max
+  float* cs = cm + hg;                            // (hg,) 1 / the row's sum
+  float* cw = cs + hg;                            // (kCombineSplits, hg)
   __shared__ int last_block;
 
+  const int split = blockIdx.x;
+  const int n_split = gridDim.x;
   const int row = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane / L;   // the group's key slot in a tile
-  const int c = lane % L;   // the lane's first chunk of a row
-  T* og = out + static_cast<size_t>(row) * HG * D;
+  const int kg = warp / hgg;  // the warp's key group
+  const int hgi = warp % hgg; // its head group: heads hgi, hgi + hgg, ...
+  const int g = lane / L;     // the lanes' key slot in a round
+  const int c = lane % L;     // the lane's first chunk of a row
+  T* og = out + static_cast<size_t>(row) * hg * D;
 
   const int len = min(max(kv_len[row / kv_heads], 0), s);
   const int nv = (len + block_kv - 1) / block_kv;   // splits with keys
   if (split >= nv) {
     if (split == 0)  // kv_len 0: zeros, the l == 0 guard
-      for (int i = tid; i < HG * D; i += kWarps * 32) store_f(og + i, 0.f);
+      for (int i = tid; i < hg * D; i += kWarps * 32) store_f(og + i, 0.f);
     return;
   }
   const int start = split * block_kv;
   const int end = min(start + block_kv, len);
-  const int ntiles = (end - start + TK - 1) / TK;
-  const int my_tiles = ntiles > warp ? (ntiles - warp + kWarps - 1) / kWarps
-                                     : 0;
+  const int nstages = (end - start + sk - 1) / sk;
 
   const T* kr = k + static_cast<size_t>(row) * s * D;
   const T* vr = v + static_cast<size_t>(row) * s * D;
-  T* ring = ring_all + warp * kStages * 2 * TILE;
-  auto load_tile = [&](int n, int slot) {
-    const int j0 = start + (warp + n * kWarps) * TK;
-    T* kd = ring + slot * 2 * TILE;
-    T* vd = kd + TILE;
-    for (int i = lane; i < TK * CH; i += 32) {
+  auto load_stage = [&](int n, int slot) {
+    const int j0 = start + n * sk;
+    T* kd = ring + slot * 2 * sk * D;
+    T* vd = kd + sk * D;
+    for (int i = tid; i < sk * CH; i += kWarps * 32) {
       const int r = i / CH;
       const bool in = j0 + r < end;
       const size_t off =
@@ -173,132 +190,149 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 #pragma unroll
   for (int n = 0; n < kStages - 1; ++n) {
-    if (n < my_tiles) load_tile(n, n);
+    if (n < nstages) load_stage(n, n);
     cp_async_commit();
   }
 
-  // the lane's chunks c, c + L, ... of each query, scaled to log2 units
-  float qf[HG][E];
-  float acc[HG][E];
-  float m[HG], l[HG];
+  // the lane's chunks c, c + L, ... of each of its heads' queries, scaled
+  // to log2 units; zeros past the row's chunks or the group's heads
+  float qf[HPW][E];
+  float acc[HPW][E];
+  float m[HPW], l[HPW];
 #pragma unroll
-  for (int h = 0; h < HG; ++h) {
-    m[h] = kNegInf;
-    l[h] = 0.f;
+  for (int j = 0; j < HPW; ++j) {
+    const int h = hgi + j * hgg;
+    m[j] = kNegInf;
+    l[j] = 0.f;
 #pragma unroll
     for (int i = 0; i < CPL; ++i) {
+      const int ch = c + i * L;
       float f[EPC];
-      unpack(*reinterpret_cast<const uint4*>(
-                 q + (static_cast<size_t>(row) * HG + h) * D +
-                 (c + i * L) * EPC),
-             f, q);
+      if (h < hg && ch < CH) {
+        unpack(*reinterpret_cast<const uint4*>(
+                   q + (static_cast<size_t>(row) * hg + h) * D + ch * EPC),
+               f, q);
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) f[e] = 0.f;
+      }
 #pragma unroll
       for (int e = 0; e < EPC; ++e) {
-        qf[h][i * EPC + e] = f[e] * qscale;
-        acc[h][i * EPC + e] = 0.f;
+        qf[j][i * EPC + e] = f[e] * qscale;
+        acc[j][i * EPC + e] = 0.f;
       }
     }
   }
 
-  for (int n = 0; n < my_tiles; ++n) {
-    if (n + kStages - 1 < my_tiles)
-      load_tile(n + kStages - 1, (n + kStages - 1) % kStages);
+  for (int n = 0; n < nstages; ++n) {
+    cp_async_wait<kStages - 2>();  // stage n has landed, for every thread
+    __syncthreads();               // and every warp is done with stage n - 1
+    if (n + kStages - 1 < nstages)
+      load_stage(n + kStages - 1, (n + kStages - 1) % kStages);
     cp_async_commit();
-    cp_async_wait<kStages - 1>();  // tile n has landed
-    __syncwarp();
-    const T* kt = ring + (n % kStages) * 2 * TILE + g * D;
-    const T* vt = kt + TILE;
-    const bool valid = start + (warp + n * kWarps) * TK + g < end;
+    const T* ks = ring + (n % kStages) * 2 * sk * D;
+    const T* vs = ks + sk * D;
+    const int j0 = start + n * sk;
+    for (int r0 = kg * TK; r0 < sk && j0 + r0 < end; r0 += bt) {
+      const T* kt = ks + (r0 + g) * D;
+      const T* vt = vs + (r0 + g) * D;
+      const bool valid = j0 + r0 + g < end;
 
-    // two partial sums a score, so two FMA chains run at once
-    float sc[HG], sc2[HG];
+      // two partial sums a score, so two FMA chains run at once
+      float sc[HPW], sc2[HPW];
 #pragma unroll
-    for (int h = 0; h < HG; ++h) sc[h] = sc2[h] = 0.f;
+      for (int j = 0; j < HPW; ++j) sc[j] = sc2[j] = 0.f;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      float f[EPC];
-      unpack(*reinterpret_cast<const uint4*>(kt + (c + i * L) * EPC), f, kt);
+      for (int i = 0; i < CPL; ++i) {
+        if (CH % L != 0 && c + i * L >= CH) continue;
+        float f[EPC];
+        unpack(*reinterpret_cast<const uint4*>(kt + (c + i * L) * EPC), f,
+               kt);
 #pragma unroll
-      for (int h = 0; h < HG; ++h)
+        for (int j = 0; j < HPW; ++j)
 #pragma unroll
-        for (int e = 0; e < EPC; e += 2) {
-          sc[h] += qf[h][i * EPC + e] * f[e];
-          sc2[h] += qf[h][i * EPC + e + 1] * f[e + 1];
-        }
+          for (int e = 0; e < EPC; e += 2) {
+            sc[j] += qf[j][i * EPC + e] * f[e];
+            sc2[j] += qf[j][i * EPC + e + 1] * f[e + 1];
+          }
+      }
+      float pe[HPW], alpha[HPW];
+#pragma unroll
+      for (int j = 0; j < HPW; ++j) {
+        sc[j] += sc2[j];
+#pragma unroll
+        for (int off = 1; off < L; off <<= 1)
+          sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], off);
+        const float x = valid ? sc[j] : kNegInf;
+        float mx = x;
+#pragma unroll
+        for (int off = L; off < 32; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[j], mx);
+        alpha[j] = exp2f(m[j] - m_new);
+        pe[j] = valid ? exp2f(x - m_new) : 0.f;
+        m[j] = m_new;
+        l[j] = l[j] * alpha[j] + pe[j];
+      }
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        if (CH % L != 0 && c + i * L >= CH) continue;
+        float f[EPC];
+        unpack(*reinterpret_cast<const uint4*>(vt + (c + i * L) * EPC), f,
+               vt);
+#pragma unroll
+        for (int j = 0; j < HPW; ++j)
+#pragma unroll
+          for (int e = 0; e < EPC; ++e)
+            acc[j][i * EPC + e] =
+                acc[j][i * EPC + e] * alpha[j] + pe[j] * f[e];
+      }
     }
-#pragma unroll
-    for (int h = 0; h < HG; ++h) sc[h] += sc2[h];
-    float pe[HG], alpha[HG];
-#pragma unroll
-    for (int h = 0; h < HG; ++h) {
-#pragma unroll
-      for (int off = 1; off < L; off <<= 1)
-        sc[h] += __shfl_xor_sync(0xffffffffu, sc[h], off);
-      const float x = valid ? sc[h] : kNegInf;
-      float mx = x;
-#pragma unroll
-      for (int off = L; off < 32; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[h], mx);
-      alpha[h] = exp2f(m[h] - m_new);
-      pe[h] = valid ? exp2f(x - m_new) : 0.f;
-      m[h] = m_new;
-      l[h] = l[h] * alpha[h] + pe[h];
-    }
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      float f[EPC];
-      unpack(*reinterpret_cast<const uint4*>(vt + (c + i * L) * EPC), f, vt);
-#pragma unroll
-      for (int h = 0; h < HG; ++h)
-#pragma unroll
-        for (int e = 0; e < EPC; ++e)
-          acc[h][i * EPC + e] = acc[h][i * EPC + e] * alpha[h] + pe[h] * f[e];
-    }
-    __syncwarp();  // every lane is done with the slot before it is reloaded
   }
   cp_async_wait<0>();
 
-  // the warp's state: sums over its groups (m is the same in every lane)
+  // the warp's state: sums over its key slots (m is the same in every lane)
 #pragma unroll
-  for (int h = 0; h < HG; ++h) {
+  for (int j = 0; j < HPW; ++j) {
+    const int h = hgi + j * hgg;
 #pragma unroll
     for (int off = L; off < 32; off <<= 1) {
-      l[h] += __shfl_xor_sync(0xffffffffu, l[h], off);
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], off);
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        acc[h][e] += __shfl_xor_sync(0xffffffffu, acc[h][e], off);
+        acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], off);
     }
+    if (h >= hg) continue;
     if (lane == 0) {
-      wm[warp * HG + h] = m[h];
-      wl[warp * HG + h] = l[h];
+      wm[kg * hg + h] = m[j];
+      wl[kg * hg + h] = l[j];
     }
     if (g == 0) {
 #pragma unroll
-      for (int i = 0; i < CPL; ++i)
+      for (int i = 0; i < CPL; ++i) {
+        const int ch = c + i * L;
+        if (ch >= CH) continue;
 #pragma unroll
         for (int e = 0; e < EPC; ++e)
-          wacc[(warp * HG + h) * D + (c + i * L) * EPC + e] =
-              acc[h][i * EPC + e];
+          wacc[(kg * hg + h) * D + ch * EPC + e] = acc[j][i * EPC + e];
+      }
     }
   }
   __syncthreads();
 
-  // the block's state, the warps merged in order
+  // the block's state, the key groups merged in order
   float* pg =
-      part + (static_cast<size_t>(row) * n_split + split) * HG * (D + 2);
-  for (int i = tid; i < HG * D; i += kWarps * 32) {
+      part + (static_cast<size_t>(row) * n_split + split) * hg * (D + 2);
+  for (int i = tid; i < hg * D; i += kWarps * 32) {
     const int h = i / D;
     const int d = i - h * D;
     float mx = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w * HG + h]);
+    for (int w = 0; w < kgn; ++w) mx = fmaxf(mx, wm[w * hg + h]);
     float sum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float wt = exp2f(wm[w * HG + h] - mx);
-      sum += wl[w * HG + h] * wt;
-      a += wacc[(w * HG + h) * D + d] * wt;
+    for (int w = 0; w < kgn; ++w) {
+      const float wt = exp2f(wm[w * hg + h] - mx);
+      sum += wl[w * hg + h] * wt;
+      a += wacc[(w * hg + h) * D + d] * wt;
     }
     if (nv == 1) {
       store_f(og + i, a / (sum == 0.f ? 1.f : sum));
@@ -324,91 +358,117 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
   if (!last_block) return;
-  // the row's partials into shared memory (the free ring) in one round of
-  // 8-byte loads, the row's max and the splits' weights from there, then
-  // each output element sums its splits' accumulators, in a fixed order
-  const float2* pr = reinterpret_cast<const float2*>(
-      part + static_cast<size_t>(row) * n_split * HG * (D + 2));
-  for (int i = tid; i < nv * HG * (D + 2) / 2; i += kWarps * 32)
-    reinterpret_cast<float2*>(stage)[i] = __ldcg(pr + i);
-  __syncthreads();
-  // warp h < HG: the row's max and sum for head h, its lanes taking the
-  // splits in turn and two shuffle trees fixed in order
-  if (warp < HG) {
-    const int h = warp;
+  // the row's partials are read from L2 (__ldcg: another block wrote them).
+  // Each head's max and sum by one warp, its lanes taking the splits in turn
+  // and two shuffle trees fixed in order
+  const float* pr = part + static_cast<size_t>(row) * n_split * hg * (D + 2);
+  for (int h = warp; h < hg; h += kWarps) {
     float mx = kNegInf;
     for (int sp = lane; sp < nv; sp += 32)
-      mx = fmaxf(mx, stage[(sp * HG + h) * (D + 2) + D]);
+      mx = fmaxf(mx, __ldcg(pr + (sp * hg + h) * (D + 2) + D));
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     float sum = 0.f;
     for (int sp = lane; sp < nv; sp += 32) {
-      const float* ps = stage + (sp * HG + h) * (D + 2);
-      const float wt = exp2f(ps[D] - mx);
-      cw[sp * HG + h] = wt;
-      sum += ps[D + 1] * wt;
+      const float* ps = pr + (sp * hg + h) * (D + 2);
+      sum += __ldcg(ps + D + 1) * exp2f(__ldcg(ps + D) - mx);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) cs[h] = 1.f / (sum == 0.f ? 1.f : sum);
+    if (lane == 0) {
+      cm[h] = mx;
+      cs[h] = 1.f / (sum == 0.f ? 1.f : sum);
+    }
   }
-  __syncthreads();
-  // four partial sums an element, so four chains of smem reads run at once
-  for (int i = tid; i < HG * D; i += kWarps * 32) {
-    const int h = i / D;
-    const int d = i - h * D;
-    float a[4] = {0.f, 0.f, 0.f, 0.f};
-    int sp = 0;
-    for (; sp + 4 <= nv; sp += 4)
+  // then each output element sums its splits' accumulators in split order,
+  // kCombineSplits splits' weights at a time; a thread takes its elements
+  // four at a time, each in four partial sums (the splits in turn, by four),
+  // so sixteen chains of loads run at once
+  const int per_thread = (hg * D + kWarps * 32 - 1) / (kWarps * 32);
+  for (int i0 = 0; i0 < per_thread; i0 += 4) {
+    float sums[4][4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        a[u] += cw[(sp + u) * HG + h] *
-                stage[((sp + u) * HG + h) * (D + 2) + d];
-    for (; sp < nv; ++sp)
-      a[0] += cw[sp * HG + h] * stage[(sp * HG + h) * (D + 2) + d];
-    store_f(og + i, ((a[0] + a[1]) + (a[2] + a[3])) * cs[h]);
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) sums[t][u] = 0.f;
+    for (int sp0 = 0; sp0 < nv; sp0 += kCombineSplits) {
+      const int n_sp = min(kCombineSplits, nv - sp0);
+      __syncthreads();  // cm is written; the previous weights are read
+      for (int i = tid; i < n_sp * hg; i += kWarps * 32) {
+        const int sp = i / hg;
+        const int h = i - sp * hg;
+        cw[i] = exp2f(__ldcg(pr + ((sp0 + sp) * hg + h) * (D + 2) + D) -
+                      cm[h]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int i = (i0 + t) * kWarps * 32 + tid;
+        if (i >= hg * D) continue;
+        const int h = i / D;
+        const float* pd = pr + (sp0 * hg + h) * (D + 2) + (i - h * D);
+        const float* wt = cw + h;
+        int sp = 0;
+        for (; sp + 4 <= n_sp; sp += 4)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            sums[t][u] += wt[(sp + u) * hg] *
+                          __ldcg(pd + static_cast<size_t>(sp + u) * hg *
+                                          (D + 2));
+        for (; sp < n_sp; ++sp)
+          sums[t][0] +=
+              wt[sp * hg] * __ldcg(pd + static_cast<size_t>(sp) * hg * (D + 2));
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int i = (i0 + t) * kWarps * 32 + tid;
+      if (i >= hg * D) continue;
+      store_f(og + i, ((sums[t][0] + sums[t][1]) + (sums[t][2] + sums[t][3])) *
+                          cs[i / D]);
+    }
   }
 }
 
-template <typename T, int D, int HG>
+template <typename T, int D, int HPW>
 int launch(const void* q, const void* k, const void* v, const int* kv_len,
            int kv_heads, void* out, float* part, int* counters, int rows,
-           int s, int block_kv, float qscale, cudaStream_t stream) {
-  using S = Shape<T, D, HG>;
-  if constexpr (!S::ok) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    // the ring (or the partials), the warps' states, the split weights
-    const int n_split = (s + block_kv - 1) / block_kv;
-    const int smem = ring_bytes<T, D, HG>(n_split) +
-                     (kWarps * HG * (D + 2) + (n_split + 1) * HG) * 4;
-    auto kernel = decode_kernel<T, D, HG>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<dim3(n_split, rows), kWarps * 32, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), kv_len, kv_heads, static_cast<T*>(out),
-        part, counters, s, block_kv, qscale);
-    return static_cast<int>(cudaGetLastError());
-  }
+           int s, int hg, int block_kv, float qscale, cudaStream_t stream) {
+  const int n_split = (s + block_kv - 1) / block_kv;
+  const int kgn = kWarps / head_groups(hg);
+  const int bt = kgn * Shape<T, D, HPW>::TK;
+  const int sk = bt > kStageKeys ? bt : kStageKeys;
+  const int smem = ring_bytes<T, D>(sk) +
+                   (kgn * hg * (D + 2) + (2 + kCombineSplits) * hg) * 4;
+  auto kernel = decode_kernel<T, D, HPW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(n_split, rows), kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), kv_len, kv_heads, static_cast<T*>(out), part,
+      counters, s, hg, block_kv, qscale);
+  return static_cast<int>(cudaGetLastError());
 }
 
+// heads a warp: ceil(hg / head_groups(hg)), 1 to 4 for groups 1 to 16
 template <typename T, int D>
 int launch_hg(const void* q, const void* k, const void* v, const int* kv_len,
               int kv_heads, void* out, float* part, int* counters, int rows,
               int s, int hg, int block_kv, float qscale, cudaStream_t st) {
-  if (hg == 1)
-    return launch<T, D, 1>(q, k, v, kv_len, kv_heads, out, part, counters,
-                           rows, s, block_kv, qscale, st);
-  if (hg == 2)
-    return launch<T, D, 2>(q, k, v, kv_len, kv_heads, out, part, counters,
-                           rows, s, block_kv, qscale, st);
-  if (hg == 4)
-    return launch<T, D, 4>(q, k, v, kv_len, kv_heads, out, part, counters,
-                           rows, s, block_kv, qscale, st);
+  if (hg < 1 || hg > kMaxGroup) return static_cast<int>(cudaErrorInvalidValue);
+  const int hpw = (hg + head_groups(hg) - 1) / head_groups(hg);
+#define DECODE_HPW(N)                                                          \
+  if (hpw == N)                                                                \
+    return launch<T, D, N>(q, k, v, kv_len, kv_heads, out, part, counters,    \
+                           rows, s, hg, block_kv, qscale, st);
+  DECODE_HPW(1)
+  DECODE_HPW(2)
+  DECODE_HPW(3)
+  DECODE_HPW(4)
+#undef DECODE_HPW
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -433,6 +493,7 @@ int launch_d(const void* q, const void* k, const void* v, const int* kv_len,
   DECODE_D(64)
   DECODE_D(128)
   DECODE_D(160)
+  DECODE_D(256)
 #undef DECODE_D
   return static_cast<int>(cudaErrorInvalidValue);
 }

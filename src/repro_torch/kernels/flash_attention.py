@@ -35,7 +35,7 @@ from ..targets import H100
 from .tiling import (FLASH_BWD_MMA_BLOCKS, FLASH_BWD_MMA_HEAD_DIMS,
                      FLASH_MMA_BLOCK_KV, FLASH_MMA_BLOCK_Q,
                      FLASH_MMA_HEAD_DIMS, flash_bwd_mma_smem_bytes,
-                     flash_bwd_smem_bytes, flash_smem_bytes)
+                     flash_bwd_smem_bytes, flash_mma_built, flash_smem_bytes)
 
 NEG_INF = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -148,7 +148,8 @@ def _forward(q, k, v, *, causal, window, scale, block_q, block_kv, q_offset,
     ``with_lse`` through its LSE entry point.  ``window=None`` is no
     window.  bf16 runs the tensor-core kernel, which takes head dims
     ``FLASH_MMA_HEAD_DIMS``, block_q in ``FLASH_MMA_BLOCK_Q`` and block_kv in
-    ``FLASH_MMA_BLOCK_KV`` (``tiling.attention_mma_blocks``) and raises on
+    ``FLASH_MMA_BLOCK_KV`` whose tiles fit one block's shared memory
+    (``tiling.flash_mma_built``, ``attention_mma_blocks``) and raises on
     others.  Returns (out, lse (BH, Sq, 1) f32 or None)."""
     bh, sq, d = q.shape
     bkv_rows, sk, _ = k.shape
@@ -159,13 +160,12 @@ def _forward(q, k, v, *, causal, window, scale, block_q, block_kv, q_offset,
     lse = (torch.empty((bh, sq, 1), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if q.dtype == torch.bfloat16:
-        if d not in FLASH_MMA_HEAD_DIMS or block_q not in FLASH_MMA_BLOCK_Q \
-                or block_kv not in FLASH_MMA_BLOCK_KV:
+        if not flash_mma_built(block_q, block_kv, d):
             raise ValueError(
                 f"flash_attention: the bf16 kernel takes head dims "
                 f"{FLASH_MMA_HEAD_DIMS}, block_q {FLASH_MMA_BLOCK_Q} and "
-                f"block_kv {FLASH_MMA_BLOCK_KV}; got {d}, {block_q}, "
-                f"{block_kv}")
+                f"block_kv {FLASH_MMA_BLOCK_KV} whose tiles fit one block's "
+                f"shared memory; got {d}, {block_q}, {block_kv}")
         # a view may start off the 16 bytes cp.async reads
         q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
         fn = _build.bind("flash_attention", "covenant_flash_attention_mma",
@@ -474,24 +474,18 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # the decode kernel (csrc/flash_decode.cu) is built for these head dims and
-# q heads per kv head
-DECODE_HEAD_DIMS = (8, 16, 32, 64, 128, 160)
-DECODE_GROUPS = (1, 2, 4)
+# q heads per kv head: its warps split a group of up to 16 heads between
+# them, at most 4 heads a warp
+DECODE_HEAD_DIMS = (8, 16, 32, 64, 128, 160, 256)
+DECODE_GROUPS = tuple(range(1, 17))
 
 
 def _decode_built(head_dim: int, group: int, elem_bytes: int) -> bool:
-    """The decode kernel is built for this shape (``Shape`` in
-    csrc/flash_decode.cu): a key's 16-byte chunks go to the fewest lanes of
-    4, 8, 16 that hold the group's queries and accumulators in at most 32
-    floats each a lane, cut to the largest power of two dividing the
-    chunks, and a lane may then hold at most 96 of each."""
-    if head_dim not in DECODE_HEAD_DIMS or group not in DECODE_GROUPS \
-            or head_dim * elem_bytes % 16:
-        return False
-    chunks = head_dim * elem_bytes // 16
-    lanes = min(next(n for n in (4, 8, 16) if group * head_dim <= 32 * n
-                     or n == 16), chunks & -chunks)
-    return group * head_dim <= 96 * lanes
+    """The decode kernel is built for this shape (``launch_d`` and
+    ``launch_hg`` in csrc/flash_decode.cu): a head dim it is built for,
+    whole 16-byte chunks a row, and a group of 1 to 16 heads."""
+    return (head_dim in DECODE_HEAD_DIMS and group in DECODE_GROUPS
+            and head_dim * elem_bytes % 16 == 0)
 
 
 # (device index, stream) -> the decode kernel's per-row arrival counters
@@ -541,9 +535,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{k.dtype}, {v.dtype}")
     if not _decode_built(d, hg, q.element_size()):
         raise ValueError(f"flash_decode: the kernel is built for head dims "
-                         f"{DECODE_HEAD_DIMS} and groups {DECODE_GROUPS} "
-                         f"whose 16-byte chunks split evenly over its lanes; "
-                         f"got head dim {d}, group {hg}, {q.dtype}")
+                         f"{DECODE_HEAD_DIMS} and groups 1 to "
+                         f"{DECODE_GROUPS[-1]}; got head dim {d}, group "
+                         f"{hg}, {q.dtype}")
     # a view may start off the 16 bytes cp.async reads
     q, k, v = (t.contiguous() for t in (q, k, v))
     q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))

@@ -210,11 +210,14 @@ def flash_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
 
 # the bf16 tensor-core flash forward (csrc/flash_attention.cu): 16 q rows a
 # warp, 2, 4 or 8 warps; the kv tiles, head dims and fragment registers it
-# is built for; K and V rows padded by 8 bf16 so ldmatrix is free of bank
-# conflicts
+# is built for (a pair whose tiles pass one block's shared memory is not:
+# at head dim 256, block_kv 128); K and V rows padded by 8 bf16 so ldmatrix
+# is free of bank conflicts; up to FLASH_MMA_HOLD_Q_MAX_D a warp holds its q
+# fragments in registers, above it reloads them from shared memory
 FLASH_MMA_BLOCK_Q = (32, 64, 128)
 FLASH_MMA_BLOCK_KV = (32, 64, 128)
-FLASH_MMA_HEAD_DIMS = (16, 32, 64, 128, 160)
+FLASH_MMA_HEAD_DIMS = (16, 32, 64, 128, 160, 256)
+FLASH_MMA_HOLD_Q_MAX_D = 160
 FLASH_MMA_PAD = 8
 # of the 255 registers a thread may hold, what the fragments may take; the
 # rest holds addresses, masks and the softmax state
@@ -230,9 +233,22 @@ def flash_mma_smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
 
 def flash_mma_regs(block_kv: int, head_dim: int) -> int:
     """32-bit registers a thread holds in fragments: the f32 O accumulator
-    (16 x d a warp), the bf16 q fragments, the f32 scores (16 x block_kv)
-    and their bf16 copy, the A operand of P V."""
-    return head_dim // 2 + head_dim // 4 + block_kv // 2 + block_kv // 4
+    (16 x d a warp), the bf16 q fragments where the kernel holds them (head
+    dims up to ``FLASH_MMA_HOLD_Q_MAX_D``; above, one k step's fragment at a
+    time, counted with the addresses), the f32 scores (16 x block_kv) and
+    their bf16 copy, the A operand of P V."""
+    q = head_dim // 4 if head_dim <= FLASH_MMA_HOLD_Q_MAX_D else 0
+    return head_dim // 2 + q + block_kv // 2 + block_kv // 4
+
+
+def flash_mma_built(block_q: int, block_kv: int, head_dim: int) -> bool:
+    """The bf16 tensor-core forward is built for this block pair and head
+    dim: each is one it is built for and its tiles
+    (``flash_mma_smem_bytes``) fit one block's shared memory."""
+    smem_b, _ = _budgets()
+    return (head_dim in FLASH_MMA_HEAD_DIMS and block_q in FLASH_MMA_BLOCK_Q
+            and block_kv in FLASH_MMA_BLOCK_KV
+            and flash_mma_smem_bytes(block_q, block_kv, head_dim) <= smem_b)
 
 
 def attention_mma_blocks(seq_q: int, seq_k: int, head_dim: int,
@@ -382,13 +398,24 @@ def attention_bwd_mma_blocks(seq_q: int, seq_k: int, head_dim: int,
     return bq, bkv
 
 
+# the decode kernel's shortest kv split: below it a split's fixed work (its
+# q load, its partials, its share of the combine) costs more than the
+# parallelism it adds (``launch.attn_probes decode``: 32-key splits took
+# 1.1 to 1.4 times as long as 64-key ones at the dense configs' shapes,
+# 16-key ones twice as long)
+DECODE_MIN_BLOCK_KV = 64
+
+
 def decode_block_kv(rows: int, seq_k: int, head_dim: int,
                     group: int) -> int:
     """kv split length for decode: the QK^T tiling of the ``rows`` (batch x
-    kv heads) GEMMs of shape (group, seq_k, head_dim).  The decode kernel's
-    grid is (kv splits x rows), so the fill rule is what splits the kv walk
-    when batch x kv heads alone would leave SMs idle."""
-    return attention_blocks(group, seq_k, head_dim, heads=rows)[1]
+    kv heads) GEMMs of shape (group, seq_k, head_dim), at least
+    ``DECODE_MIN_BLOCK_KV`` keys (or the whole cache, rounded up to 16).
+    The decode kernel's grid is (kv splits x rows), so the fill rule is
+    what splits the kv walk when batch x kv heads alone would leave SMs
+    idle."""
+    bkv = attention_blocks(group, seq_k, head_dim, heads=rows)[1]
+    return max(bkv, min(DECODE_MIN_BLOCK_KV, _round_up(seq_k, N_UNIT)))
 
 
 # the SSD chunk scan on the tensor cores (csrc/ssd_scan.cu): row blocks of
@@ -463,14 +490,16 @@ def ssd_mma_blocks(chunk: int, state: int, headdim: int, heads: int = 1,
     return bl, bc
 
 
-__all__ = ["FLASH_BWD_MMA_BLOCKS", "FLASH_BWD_MMA_FRAG_REGS",
+__all__ = ["DECODE_MIN_BLOCK_KV", "FLASH_BWD_MMA_BLOCKS", "FLASH_BWD_MMA_FRAG_REGS",
            "FLASH_BWD_MMA_HEAD_DIMS", "FLASH_BWD_MMA_SLICE",
            "FLASH_MMA_BLOCK_KV", "FLASH_MMA_BLOCK_Q", "FLASH_MMA_HEAD_DIMS",
+           "FLASH_MMA_HOLD_Q_MAX_D",
            "K_UNIT", "N_UNIT", "WARPGROUP_M", "WGMMA_N", "attention_blocks",
            "attention_bwd_blocks", "attention_bwd_mma_blocks",
            "attention_mma_blocks", "decode_block_kv",
            "flash_bwd_mma_regs", "flash_bwd_mma_smem_bytes",
-           "flash_bwd_smem_bytes", "flash_mma_regs", "flash_mma_smem_bytes",
+           "flash_bwd_smem_bytes", "flash_mma_built", "flash_mma_regs",
+           "flash_mma_smem_bytes",
            "flash_smem_bytes", "gemm_blocks", "gemm_fits", "gemm_stage_bytes",
            "gemm_stages", "ssd_mma_blocks", "ssd_mma_smem_bytes",
            "ssd_state_smem_bytes", "wgmma_fits", "wgmma_rows"]

@@ -19,9 +19,9 @@ outputs of 2 or more the kernel and the plain version round to another
 bf16 value than float64's; the share of outputs whose bf16 value differs
 from the plain version's; and the kernel's device time.
 
-``decode`` (card) prints the decode's device time at qwen3's and zamba2's
-serve shapes over split lengths and kv_len patterns, beside SDPA's with a
-mask and one fill kernel's.
+``decode`` (card) prints the decode's device time at the served models'
+decode shapes (``DECODE_SHAPES``) over split lengths and kv_len patterns,
+beside SDPA's with a mask and one fill kernel's.
 """
 from __future__ import annotations
 
@@ -146,13 +146,24 @@ def bwd(device, seeds: int = 10) -> None:
               f"device {ms:.4f} ms", flush=True)
 
 
+# (B, Hq, Hkv, S, D, kv_len patterns): qwen3's and zamba2's serve shapes,
+# then gemma3's local and global caches, stablelm's, command-r's and
+# paligemma's group 8
+DECODE_SHAPES = (
+    (4, 16, 8, 1024, 128, ((1, 300, 777, 1024), (0,) * 4, (1,) * 4,
+                           (64,) * 4, (65,) * 4, (1024,) * 4)),
+    (4, 32, 32, 2080, 160, ((1, 700, 2049, 2080),)),
+    (4, 16, 8, 1024, 256, ((1, 700, 993, 1024), (1024,) * 4)),
+    (4, 16, 8, 2080, 256, ((1, 700, 2049, 2080), (2049,) * 4)),
+    (4, 32, 8, 2080, 160, ((1, 700, 2049, 2080), (2049,) * 4)),
+    (4, 96, 8, 2080, 128, ((1, 700, 2049, 2080), (2049,) * 4)),
+    (4, 8, 1, 2080, 256, ((1, 700, 2049, 2080),)))
+
+
 def decode(device) -> None:
     g = torch.Generator(device=device)
     g.manual_seed(0)
-    for (b, hq, hkv, s, d, lens) in (
-            (4, 16, 8, 1024, 128, ((1, 300, 777, 1024), (0,) * 4, (1,) * 4,
-                                   (64,) * 4, (65,) * 4, (1024,) * 4)),
-            (4, 32, 32, 2080, 160, ((1, 700, 2049, 2080),))):
+    for (b, hq, hkv, s, d, lens) in DECODE_SHAPES:
         q = torch.randn((b, hq, d), generator=g, device=device).bfloat16()
         k = torch.randn((b, hkv, s, d), generator=g, device=device).bfloat16()
         v = torch.randn((b, hkv, s, d), generator=g, device=device).bfloat16()

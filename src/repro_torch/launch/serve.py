@@ -6,7 +6,9 @@ prefilled, then decoded step by step against the KV cache (updated in
 place); when the batch is done its slots go to the next requests in the
 queue.  Runs on ``--device cuda`` unless asked otherwise; ``--attn kernel``
 sends attention and the SSD through the Hopper kernels, ``--attn plain``
-through plain PyTorch.  Before serving, as the reference prints its
+through plain PyTorch; ``--n-layers`` keeps the arch's width and cuts its
+depth, for a model whose weights pass one card (command-r-plus-104b's
+208 GB in bf16).  Before serving, as the reference prints its
 per-layer cycle report, this prints ``launch.layers.layer_report``: the
 model's block GEMMs at the decode batch through the Covenant-tiled GEMM
 kernel, timed on the device.
@@ -84,9 +86,13 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--attn", choices=("kernel", "plain"), default="kernel")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="serve this many layers at full width (0: all)")
     args = ap.parse_args(argv)
 
     cfg = configs.get_config(args.arch, smoke=args.smoke)
+    if args.n_layers:
+        cfg = cfg.replace(n_layers=args.n_layers)
     before = kernel_launches()
     print(layer_report(cfg, tokens=args.batch, device=args.device,
                        seed=args.seed))
@@ -113,6 +119,7 @@ def main(argv: list[str] | None = None) -> dict:
     return {"requests": len(prompts), "new_tokens": total_tokens,
             "seconds": dt, "tok_per_s": total_tokens / dt,
             "batch_seconds": per_batch, "launches": launches,
+            "n_layers": cfg.n_layers,
             "batches": len(outputs),
             "decode_steps": sum(o.shape[1] - 1 for o in outputs)}
 

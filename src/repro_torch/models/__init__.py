@@ -8,8 +8,10 @@
 * ``prefill(params, batch, cache)``         -> (last logits (B,V), cache)
 * ``decode_step(params, tokens, cache)``    -> (logits (B,V), cache)
 
-So far it holds the ``dense``, ``ssm`` (mamba2) and ``hybrid`` (zamba2)
-families; ``extra_inputs`` comes with the encoder-decoder and VLM families.
+It holds the ``dense`` family (qwen3, stablelm, gemma3, command-r), the
+``ssm`` one (mamba2) and the ``hybrid`` one (zamba2); ``get_model`` raises
+for ``moe``, ``audio`` and ``vlm``, and ``extra_inputs`` comes with the
+encoder-decoder and VLM families.
 Everything runs on ``device`` (``cuda`` unless the caller asks for
 ``cpu``); ``loss_fn`` takes a batch of numpy arrays or tensors and moves it
 there.  ``attn`` picks the path of every kernel of the model: the kernel

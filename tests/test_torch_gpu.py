@@ -782,8 +782,13 @@ def test_flash_bwd_and_decode_deterministic_on_card(cuda):
             q, k, v, kv_len, block_kv=bkv), first)
 
 
-# the decode at both served models' shapes: (B, Hq, Hkv, S, D)
-DECODE_MODEL_SHAPES = [(4, 16, 8, 1024, 128), (4, 32, 32, 2080, 160)]
+# the decode at the served models' shapes: (B, Hq, Hkv, S, D): qwen3,
+# zamba2, gemma3's local and global caches, stablelm, command-r, and
+# paligemma's (256, 8)
+DECODE_MODEL_SHAPES = [(4, 16, 8, 1024, 128), (4, 32, 32, 2080, 160),
+                       (4, 16, 8, 1024, 256), (4, 16, 8, 2080, 256),
+                       (4, 32, 8, 2080, 160), (4, 96, 8, 2080, 128),
+                       (4, 8, 1, 2080, 256)]
 
 
 @pytest.mark.parametrize("shape", DECODE_MODEL_SHAPES)
@@ -791,8 +796,10 @@ DECODE_MODEL_SHAPES = [(4, 16, 8, 1024, 128), (4, 32, 32, 2080, 160)]
 def test_flash_decode_model_shapes_on_card(cuda, shape, dtype):
     """kv_len 0 (zeros), 1, either side of a split edge and the full cache,
     with the tiler's split; against the plain version (bf16 2e-2, f32
-    2e-3).  The lengths are one per batch entry, int32 on the card as the
-    models keep them, read by the kernel for each kv head's row."""
+    2e-3), and bit-equal on a second run (rows of several splits, whose
+    last block to arrive combines them).  The lengths are one per batch
+    entry, int32 on the card as the models keep them, read by the kernel
+    for each kv head's row."""
     from repro_torch.kernels.tiling import decode_block_kv
 
     b, hq, hkv, s, d = shape
@@ -812,6 +819,8 @@ def test_flash_decode_model_shapes_on_card(cuda, shape, dtype):
             v.reshape(b * hkv, s, d), kv_len, kv_heads=hkv).reshape(b, hq, d)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=0)
+        assert torch.equal(got, ops.covenant_decode_attention(
+            q, k, v, kv_len, block_kv=bkv))
         if lens[0] == 0:
             assert bool((got[0] == 0).all())
 
@@ -914,3 +923,104 @@ def test_ssm_train_cli_smoke_on_card(cuda, arch, tmp_path):
     if arch == "zamba2-2.7b":
         assert out["launches"]["flash_attention_fwd_lse"] > 0
         assert out["launches"]["flash_attention_bwd"] > 0
+
+
+# ---------------------------------------------------------------------------
+# head dim 256 in the forward, any group from 1 to 16 in the decode
+# ---------------------------------------------------------------------------
+
+# the block pairs the bf16 forward is built for at head dim 256: block_kv
+# 128 passes one block's shared memory
+D256_BLOCKS = [(32, 32), (32, 64), (64, 32), (64, 64), (128, 32), (128, 64)]
+
+
+@pytest.mark.parametrize("sq,sk,window", MMA_FA_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_head_dim_256_on_card(cuda, sq, sk, window, dtype):
+    """gemma3's head dim: the forward and the LSE forward at every block
+    pair built for bf16 (2e-2) and at SIMT pairs for f32 (2e-3), with GQA,
+    ragged edges, a window and Sq > Sk; a bf16 pair that is not built
+    raises."""
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_fwd_lse_plain
+
+    d = 256
+    q = randn(cuda, 4, sq, d, dtype=dtype)
+    k = randn(cuda, 2, sk, d, dtype=dtype)
+    v = randn(cuda, 2, sk, d, dtype=dtype)
+    off = sk - sq
+    want = flash_attention_plain(q, k, v, window=window, q_offset=off)
+    want_o, want_lse = flash_attention_fwd_lse_plain(q, k, v, window=window,
+                                                     q_offset=off)
+    bf16 = dtype == torch.bfloat16
+    tol = 2e-2 if bf16 else 2e-3
+    for bq, bkv in (D256_BLOCKS if bf16 else [(64, 64), (32, 32)]):
+        got = flash_attention(q, k, v, window=window, block_q=bq,
+                              block_kv=bkv, q_offset=off)
+        out, lse = flash_attention_fwd_lse(q, k, v, window=window,
+                                           block_q=bq, block_kv=bkv,
+                                           q_offset=off)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=0)
+        torch.testing.assert_close(out.float(), want_o.float(), atol=tol,
+                                   rtol=0)
+        torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+        if off < 0:
+            assert bool((out[:, :-off] == 0).all())
+            assert bool((lse[:, :-off] == -1e30).all())
+    if bf16:
+        with pytest.raises(ValueError):
+            flash_attention(q, k, v, block_q=64, block_kv=128, q_offset=off)
+
+
+def test_flash_attention_gemma3_prefill_on_card(cuda):
+    """gemma3's prefill through ``covenant_attention`` with the tiler's
+    blocks: B2 of 16 q and 8 kv heads, S 2048, its local window 1024 and
+    none, bf16, against ``attention_ref`` at 2e-2."""
+    q = randn(cuda, 2, 16, 2048, 256, dtype=torch.bfloat16)
+    k = randn(cuda, 2, 8, 2048, 256, dtype=torch.bfloat16)
+    v = randn(cuda, 2, 8, 2048, 256, dtype=torch.bfloat16)
+    for window in (1024, None):
+        before = flash_attention.launches
+        got = ops.covenant_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        want = ops.attention_ref(q, k, v, causal=True, window=window)
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("d", [8, 64, 160, 256])
+@pytest.mark.parametrize("hg", list(range(1, 17)))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_every_group_on_card(cuda, d, hg, dtype):
+    """Every group from 1 to 16 (its warps split the heads, up to 4 a
+    warp): ragged lengths of one batch entry per two rows, a zero-length
+    entry, splits of 16 keys; against the plain version (bf16 2e-2, f32
+    2e-3) and bit-equal on two runs."""
+    rows, s = 6, 100
+    q = randn(cuda, rows, hg, d, dtype=dtype)
+    k, v = randn(cuda, rows, s, d, dtype=dtype), randn(cuda, rows, s, d,
+                                                       dtype=dtype)
+    kv_len = torch.tensor([0, 37, 100], device=cuda, dtype=torch.int32)
+    got = flash_decode(q, k, v, kv_len, block_kv=16, kv_heads=2)
+    again = flash_decode(q, k, v, kv_len, block_kv=16, kv_heads=2)
+    want = flash_decode_plain(q, k, v, kv_len, kv_heads=2)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert torch.equal(got, again)
+    assert bool((got[:2] == 0).all())
+
+
+def test_flash_decode_refuses_unbuilt_shapes_on_card(cuda):
+    """A head dim the decode is not built for, or a group past 16, raises
+    before a launch: it never falls back to the plain version."""
+    for hg, d in ((1, 96), (17, 128)):
+        q = randn(cuda, 2, hg, d, dtype=torch.bfloat16)
+        k = randn(cuda, 2, 40, d, dtype=torch.bfloat16)
+        kv_len = torch.tensor([40, 40], device=cuda, dtype=torch.int32)
+        before = flash_decode.launches
+        with pytest.raises(ValueError):
+            flash_decode(q, k, k, kv_len)
+        assert flash_decode.launches == before

@@ -112,6 +112,14 @@ def test_decode_split_fills_the_card():
     assert bkv % 16 == 0 and 32 * -(-1024 // bkv) >= 2 * H100["sms"]
 
 
+@pytest.mark.parametrize("seq_k,want", [(8, 16), (32, 32), (60, 64),
+                                        (96, 64)])
+def test_decode_split_floor_stops_at_the_cache(seq_k, want):
+    """The 64-key floor of the decode's split never passes the cache, which
+    it takes whole (rounded up to 16) when it is shorter."""
+    assert decode_block_kv(4, seq_k, 16, 2) == want
+
+
 def test_h100_constants_follow_the_data_sheet():
     acg = ACG.from_spec(H100_SPEC)
     assert acg.memory("SMEM").capacity_bytes <= SMEM_MAX
@@ -170,6 +178,14 @@ PINNED_BWD = {
 PINNED_DECODE = {
     (32, 1024, 128, 2): 64,              # qwen3 serve: 4 x 8 kv heads
     (128, 2080, 160, 1): 112,            # zamba2 serve: 4 x 32 kv heads
+    # the other dense configs' serve shapes, whose tiler splits of 32 (16
+    # at paligemma's 4 rows) the 64-key floor lifts: gemma3's local and
+    # global caches, stablelm, command-r, paligemma's group 8
+    (32, 1024, 256, 2): 64,
+    (32, 2080, 256, 2): 64,
+    (32, 2080, 160, 4): 64,
+    (32, 2080, 128, 12): 64,
+    (4, 2080, 256, 8): 64,
 }
 # (chunk, state, headdim, heads, bf16 parts) -> (block_l, block_c) of the
 # tensor-core SSD kernel
@@ -283,11 +299,15 @@ def test_wgmma_fits_refuses_what_the_kernel_cannot_run():
 
 
 # (seq_q, seq_k, head_dim, heads) of the bf16 forward on the main paths:
-# qwen3 serve and train (B 4 x 16 heads, S 512), zamba2 prefill (B 4 x 32
-# heads of 160, S 2048), and short and ragged sequences
+# qwen3 serve and train (B 4 x 16 heads, S 512), zamba2 and stablelm
+# prefill (B 4 x 32 heads of 160, S 2048), gemma3 prefill (B 4 x 16 heads
+# of 256), command-r prefill (B 4 x 96 heads of 128), and short and ragged
+# sequences
 MMA_ATTN = [(512, 512, 128, 64), (1024, 1024, 128, 64),
             (2048, 2048, 160, 128), (2080, 2080, 160, 128),
-            (300, 300, 160, 32), (21, 21, 64, 4), (70, 130, 128, 8)]
+            (2048, 2048, 256, 64), (2048, 2048, 128, 384),
+            (300, 300, 160, 32), (300, 300, 256, 8), (21, 21, 64, 4),
+            (70, 130, 128, 8)]
 
 
 @pytest.mark.parametrize("shape", MMA_ATTN)
@@ -299,7 +319,7 @@ def test_attention_mma_blocks_fit_the_kernel(shape):
                                             FLASH_MMA_BLOCK_Q,
                                             FLASH_MMA_FRAG_REGS,
                                             attention_mma_blocks,
-                                            flash_mma_regs,
+                                            flash_mma_built, flash_mma_regs,
                                             flash_mma_smem_bytes)
 
     sq, sk, d, heads = shape
@@ -308,6 +328,7 @@ def test_attention_mma_blocks_fit_the_kernel(shape):
     assert bkv in FLASH_MMA_BLOCK_KV and bkv % 16 == 0
     assert flash_mma_regs(bkv, d) <= FLASH_MMA_FRAG_REGS < 255
     assert flash_mma_smem_bytes(bq, bkv, d) <= SMEM_MAX // 2 - 1024
+    assert flash_mma_built(bq, bkv, d)
 
 
 def test_attention_mma_blocks_at_the_main_path_shapes():
@@ -318,6 +339,88 @@ def test_attention_mma_blocks_at_the_main_path_shapes():
     assert attention_mma_blocks(2048, 2048, 160, heads=128) == (64, 64)
     # bf16 q (64 x 168), k and v (2 x 64 x 168 each): 107,520 bytes
     assert flash_mma_smem_bytes(64, 64, 160) == 107_520
+    # gemma3's prefill: at head dim 256 (64, 64)'s tiles pass half the SM
+    # (168,960 bytes), so block_kv halves: (64 + 4 x 32) x 264 x 2 bytes
+    assert attention_mma_blocks(2048, 2048, 256, heads=64) == (64, 32)
+    assert flash_mma_smem_bytes(64, 32, 256) == 101_376
+
+
+def test_flash_mma_d256_holds_q_in_shared_memory():
+    """At head dim 256 the O accumulator takes 128 registers a thread, so
+    the kernel reloads q's fragments each k step instead of holding them:
+    the (64, 32) block's fragments fit the budget; held q fragments (64
+    more) would not."""
+    from repro_torch.kernels.tiling import (FLASH_MMA_FRAG_REGS,
+                                            FLASH_MMA_HOLD_Q_MAX_D,
+                                            flash_mma_regs)
+
+    assert FLASH_MMA_HOLD_Q_MAX_D == 160
+    assert flash_mma_regs(32, 256) == 128 + 16 + 8 <= FLASH_MMA_FRAG_REGS
+    assert flash_mma_regs(32, 256) + 256 // 4 > FLASH_MMA_FRAG_REGS
+    # below it the q fragments are still counted
+    assert flash_mma_regs(64, 160) == 80 + 40 + 32 + 16
+
+
+@pytest.mark.parametrize("blocks,built", [
+    ((64, 32), True), ((32, 32), True), ((128, 64), True), ((32, 64), True),
+    ((32, 128), False), ((64, 128), False), ((128, 128), False),
+    ((64, 48), False), ((16, 32), False)])
+def test_flash_mma_built_at_head_dim_256(blocks, built):
+    """The bf16 forward is built at head dim 256 for the block pairs whose
+    tiles fit one block's shared memory: block_kv 128 does not."""
+    from repro_torch.kernels.tiling import flash_mma_built
+
+    assert flash_mma_built(*blocks, 256) is built
+
+
+@pytest.mark.parametrize("head_dim", [8, 48, 80, 96, 512])
+def test_flash_mma_built_refuses_other_head_dims(head_dim):
+    from repro_torch.kernels.tiling import flash_mma_built
+
+    assert not flash_mma_built(64, 32, head_dim)
+
+
+def _reference_attention_shapes():
+    """(arch, head_dim, group) of every reference config with attention:
+    zamba2's shared block attends over concat(hidden, embed), twice
+    d_model wide."""
+    from repro.configs import ARCHS as REF_ARCHS
+
+    out = []
+    for arch in REF_ARCHS:
+        cfg = ref_get_config(arch)
+        if not cfg.n_heads:
+            continue
+        hd = 2 * cfg.d_model // cfg.n_heads if cfg.family == "hybrid" \
+            else cfg.hd
+        out.append((arch, hd, cfg.n_heads // cfg.n_kv_heads))
+    return out
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+def test_decode_built_for_every_reference_config(elem_bytes):
+    """The decode kernel is built for the (head_dim, group) of each of the
+    reference's configs with attention, in bf16 and f32: gemma3 (256, 2),
+    stablelm (160, 4), command-r (128, 12), paligemma (256, 8) among them."""
+    from repro_torch.kernels.flash_attention import _decode_built
+
+    shapes = _reference_attention_shapes()
+    assert {(hd, g) for _, hd, g in shapes} >= {
+        (128, 2), (256, 2), (160, 4), (128, 12), (256, 8), (160, 1),
+        (64, 1), (128, 1)}
+    for arch, hd, g in shapes:
+        assert _decode_built(hd, g, elem_bytes), (arch, hd, g)
+
+
+@pytest.mark.parametrize("head_dim,group", [
+    (48, 1), (96, 2), (200, 4), (512, 1), (128, 17), (128, 0), (4, 1)])
+def test_decode_mirror_refuses_what_is_not_built(head_dim, group):
+    """Head dims the kernel is not built for, and groups past 16, are
+    refused before a launch: ``flash_decode`` raises on them on the card."""
+    from repro_torch.kernels.flash_attention import _decode_built
+
+    for elem_bytes in (2, 4):
+        assert not _decode_built(head_dim, group, elem_bytes)
 
 
 # (seq_q, seq_k, head_dim, heads) -> the bf16 backward's blocks: qwen3's
