@@ -60,7 +60,21 @@
    required once per layer of each batch and flash decode once per layer
    of each decode step, the kernel path against the plain path in bf16
    beside the plain path's own one-ulp spread, and a profiled prefill;
-10. prints a ``kernels`` JSON line (six kernels, launches summed over every
+10. serves the MoE family, deepseek-moe-16b then olmoe-1b-7b, at full
+   width and depth with the same traffic, each freed before the next
+   loads: their GEMM, attention (head dim 128, group 1) and decode shapes
+   checked first; one MoE layer's dispatch at full width on the card
+   against the CPU in f32, on tokens that crowd a few experts past their
+   capacity (the same assignments kept, outputs within 1e-4, bit-equal on
+   two card runs); then ``launch.serve`` with every counter from 0, flash
+   attention required once per layer of each batch and flash decode once
+   per layer of each decode step, the dense leading layer counted; the
+   kernel path against the plain path gated in f32 (olmoe at full depth,
+   deepseek at 4 layers) and printed in bf16 at full depth beside the
+   plain path's own one-ulp spread and the (token, expert) assignments
+   that differ between the paths in each layer; a profiled prefill and 4
+   profiled decode steps;
+11. prints a ``kernels`` JSON line (six kernels, launches summed over every
    path) and, last, the ``ok`` JSON line; the per-case details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -98,12 +112,12 @@ from repro_torch.kernels.tiling import (  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.layers import (  # noqa: E402
     device_kernels, device_ms, lm_layer_gemms, mean_ms)
-from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import get_model, moe  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import (make_loss_with_accum,  # noqa: E402
                                  make_train_step)
 from repro_torch.targets import H100  # noqa: E402
-from repro_torch.tree import tree_paths  # noqa: E402
+from repro_torch.tree import tree_map, tree_paths  # noqa: E402
 
 ARCH = "qwen3-0.6b"
 BATCH, PROMPT, MAX_NEW, REQUESTS, MAX_LEN = 4, 512, 32, 8, 1024
@@ -199,6 +213,17 @@ SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS = 2, 1024, 3
 # the layers served, 0 for all
 DENSE_ARCHS = {"gemma3-12b": 0, "stablelm-12b": 0, "command-r-plus-104b": 4}
 DENSE_PROMPT, DENSE_MAX_LEN = 2048, 2080
+# the MoE family, served at full width and depth with the dense configs'
+# traffic; the value is the depth of the f32 gate (see compare_moe): all
+# 16 of olmoe's layers (about 27.7 GB in f32), 4 of deepseek's 28 (the
+# dense one and 3 MoE layers, about 9 GB; all 28 take about 65 GB)
+MOE_ARCHS = {"deepseek-moe-16b": 4, "olmoe-1b-7b": 0}
+# the dispatch check's tokens: standard normal plus this multiple of one
+# shared standard normal vector, which crowds a few experts past their
+# capacity at capacity_factor 1.25 (independent tokens load every expert
+# to about 80 % of it, and nothing is dropped)
+MOE_COMMON = 0.1
+MOE_DISPATCH_REL_L2 = 1e-4   # see check_moe_dispatch
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -554,7 +579,9 @@ def compare_paths(cfg, dev, prompt: int = PROMPT, max_len: int = MAX_LEN,
       5e-2, by qwen3's rule: sqrt(48) * 2^-8 ~= 2.7e-2, sqrt(40) * 2^-8
       ~= 2.5e-2 and sqrt(4) * 2^-8 ~= 7.8e-3; each model's plain path
       against itself with one weight moved one bf16 ulp is printed beside
-      it (``compare_dense``)."""
+      it (``compare_dense``).
+    * deepseek-moe-16b (4 layers) and olmoe-1b-7b in f32, 5e-2, printed in
+      bf16 at full depth (see ``compare_moe``)."""
     kmodel = get_model(cfg, device=dev, attn="kernel")
     pmodel = get_model(cfg, device=dev, attn="plain")
     params = kmodel.init_params(1)
@@ -1181,6 +1208,28 @@ def profile_prefill(model, params, prompt: int = SSM_PROMPT,
     return _profile(run, f"{model.cfg.name} prefill")
 
 
+def profile_decode(model, params, steps: int = 4, prompt: int = DENSE_PROMPT,
+                   max_len: int = DENSE_MAX_LEN) -> dict:
+    """``steps`` decode steps of the served shape (kernel path) under the
+    profiler, after a prefill and the same steps outside it.  Each call
+    decodes from the prefill's cache, whose k/v rows it rewrites in
+    place."""
+    rng = np.random.default_rng(2)
+    toks = torch.as_tensor(rng.integers(2, model.cfg.vocab,
+                                        (BATCH, prompt)),
+                           device=model.device)
+    logits, cache = model.prefill(params, {"tokens": toks},
+                                  model.init_cache(BATCH, max_len))
+
+    def run():
+        out, c = logits, cache
+        for _ in range(steps):
+            out, c = model.decode_step(params, out.argmax(-1), c)
+
+    run()
+    return _profile(run, f"{model.cfg.name} {steps} decode steps")
+
+
 def serve_ssm(rec: Record, dev, gen, arch: str) -> dict:
     """The served path of ``arch`` at full width: its layer report's GEMM
     shapes (and, for zamba2, attention and decode at head_dim 160) checked,
@@ -1256,15 +1305,162 @@ def compare_dense(cfg, dev) -> tuple[dict, object, dict]:
             model, params)
 
 
+def routing_differences(amodel, aparams, bmodel, bparams, prompt: int,
+                        max_len: int, label: str) -> list[int]:
+    """For each MoE layer of one prefill of the prompt ``_compare`` feeds,
+    the (token, expert) assignments kept on one side and not on the
+    other (a token whose top-k changed by one expert counts 2)."""
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(2, amodel.cfg.vocab,
+                                        (BATCH, prompt)),
+                           device=amodel.device)
+    kept, ffn = [], moe.moe_ffn
+
+    def recording(cfg, p, x):
+        kept[-1].append(moe.kept_assignments(cfg, p, x))
+        return ffn(cfg, p, x)
+
+    moe.moe_ffn = recording
+    try:
+        for model, params in ((amodel, aparams), (bmodel, bparams)):
+            kept.append([])
+            model.prefill(params, {"tokens": toks},
+                          model.init_cache(BATCH, max_len))
+    finally:
+        moe.moe_ffn = ffn
+    n_moe = len(aparams["layers"])
+    if [len(k) for k in kept] != [n_moe, n_moe]:
+        raise RuntimeError(
+            f"{label}: recorded {[len(k) for k in kept]} MoE layers' "
+            f"routing, expected {n_moe} on each side")
+    out = [int((a != b).sum()) for a, b in zip(*kept)]
+    print(f"[compare] {label}: (token, expert) assignments that differ, by "
+          f"MoE layer of the prefill: {out} (of {BATCH * prompt} tokens x "
+          f"top-{amodel.cfg.top_k})", flush=True)
+    return out
+
+
+def compare_moe(cfg, dev) -> tuple[dict, object, dict]:
+    """An MoE config at full width, kernel path against plain path: gated
+    in f32 (at ``MOE_ARCHS[cfg.name]`` layers, 0 for all), printed in bf16
+    at full depth beside the plain path's own spread (plain against plain
+    with the first MoE layer's first norm scale entry moved by one bf16
+    ulp), each beside the (token, expert) assignments that differ between
+    the two sides in each layer.  Returns (the comparisons, the bf16
+    kernel-path model, its weights).
+
+    Why f32.  In bf16 the paths differ inside attention by about one
+    rounding a layer (``compare_paths``), and over 4 x 2048 tokens and 64
+    experts some tokens' top-k choices sit closer than that.  Such a
+    token's routing flips, which moves its FFN output by a whole expert's
+    share and shifts which later tokens that expert keeps at its capacity.
+    That is rounding, not a fault, but its size is not one rounding's; so
+    bf16 is printed with the flips that explain it.
+
+    Bound in f32, 5e-2, the serve gate: the paths differ inside attention
+    by the order of f32 sums, about 1e-6 relative, so a flip needs two of a
+    token's router probabilities that close at the top-k edge, which is
+    rare, and moves only that token (and its experts' capacity edges),
+    while the gate reads the last token's logits.  A wrong mask, layout,
+    gate weight or capacity moves the logits by their own size."""
+    out = {}
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                      n_layers=MOE_ARCHS[cfg.name] or cfg.n_layers)
+    for key, c, tol in (("float32", f32, LOGITS_REL_L2),
+                        ("bfloat16", cfg, None)):
+        rel, agree, model, params = compare_paths(c, dev, DENSE_PROMPT,
+                                                  DENSE_MAX_LEN, tol=tol)
+        pmodel = get_model(c, device=dev, attn="plain")
+        flips = routing_differences(
+            model, params, pmodel, params, DENSE_PROMPT, DENSE_MAX_LEN,
+            f"{c.name} {c.compute_dtype} ({c.n_layers} layers) kernel "
+            "against plain")
+        out[key] = dict(n_layers=c.n_layers, rel_l2=rel, argmax_agree=agree,
+                        routing_differs=flips)
+        if c is f32:
+            del model, params, pmodel
+            torch.cuda.empty_cache()
+    lp0 = params["layers"][0]
+    moved = {**params, "layers": [
+        {**lp0, "ln1": {**lp0["ln1"], "scale": lp0["ln1"]["scale"].clone()}}]
+        + params["layers"][1:]}
+    moved["layers"][0]["ln1"]["scale"][0] *= 1 + BF16_ULP
+    srel, sagree = _compare(pmodel, pmodel, moved, params, DENSE_PROMPT,
+                            DENSE_MAX_LEN, f"{cfg.name} bf16 plain, one "
+                            "weight moved one ulp,", None)
+    sflips = routing_differences(
+        pmodel, moved, pmodel, params, DENSE_PROMPT, DENSE_MAX_LEN,
+        f"{cfg.name} bf16 plain, one weight moved one ulp, against plain")
+    out["bfloat16_plain_spread"] = dict(rel_l2=srel, argmax_agree=sagree,
+                                        routing_differs=sflips)
+    del moved, pmodel
+    return out, model, params
+
+
+def check_moe_dispatch(cfg, dev) -> dict:
+    """One MoE layer's ``moe_ffn`` at full width on the card against the
+    CPU, on the same f32 weights (seeded on the CPU) and ``BATCH`` x
+    ``DENSE_PROMPT`` tokens with a shared component (``MOE_COMMON``) that
+    crowds a few experts past their capacity at the config's capacity
+    factor.  Drops must happen; the kept (token, expert) assignments must
+    be equal; the outputs within ``MOE_DISPATCH_REL_L2`` relative L2; two
+    card runs bit-equal.
+
+    Bound, 1e-4: both sides compute the same f32 products (no TF32) and
+    differ in the order of their sums, each within K u of its terms'
+    absolute sum (K = 2048, u = 2^-24: 1.2e-4 at worst, about sqrt(K) u
+    ~= 2.7e-6 for terms of random sign).  One token routed, kept or
+    dropped otherwise moves its row by a whole expert's share, about
+    1e-3 of the whole output's norm even for one row of 8192."""
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe_ffn(f32, gen)
+    d = cfg.d_model
+    x = (torch.randn((BATCH, DENSE_PROMPT, d), generator=gen)
+         + MOE_COMMON * torch.randn((d,), generator=gen))
+    pd, xd = tree_map(lambda a: a.to(dev), p), x.to(dev)
+    run = lambda: moe.moe_ffn(f32, pd, xd)  # noqa: E731
+    got = run().cpu()
+    same = bit_equal(run)
+    kept_card = moe.kept_assignments(f32, pd, xd).cpu()
+    ms = mean_ms(run, dev, 5)
+    t0 = time.perf_counter()
+    want = moe.moe_ffn(f32, p, x)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    kept = moe.kept_assignments(f32, p, x)
+    rel = float((got - want).norm() / want.norm())
+    cap = moe.capacity(f32, BATCH * DENSE_PROMPT)
+    dropped = BATCH * DENSE_PROMPT * cfg.top_k - int(kept.sum())
+    full = int((kept.sum(0) == cap).sum())
+    differ = int((kept_card != kept).sum())
+    ok = dropped > 0 and differ == 0 and rel <= MOE_DISPATCH_REL_L2 and same
+    print(f"[moe] {cfg.name} dispatch, one layer, {BATCH}x{DENSE_PROMPT} "
+          f"tokens f32, capacity {cap}: {dropped} assignments dropped, "
+          f"{full} of {cfg.n_experts} experts full; card against CPU: "
+          f"{differ} kept assignments differ, rel_l2={rel:.3e} (tol "
+          f"{MOE_DISPATCH_REL_L2}), {'bit-equal' if same else 'NOT bit-equal'}"
+          f" on two card runs; card {ms:.3f} ms, CPU {cpu_ms:.1f} ms "
+          f"{'ok' if ok else 'FAILED'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{cfg.name} dispatch: dropped {dropped}, "
+                             f"{differ} kept assignments differ, rel_l2 "
+                             f"{rel}, bit-equal {same}")
+    return dict(capacity=cap, dropped=dropped, experts_full=full,
+                kept_differ=differ, rel_l2=rel, bit_equal=same, card_ms=ms,
+                cpu_ms=cpu_ms)
+
+
 def serve_dense(rec: Record, dev, gen, arch: str, n_layers: int) -> dict:
-    """A dense config at full width (``n_layers`` layers, 0 for all): its
-    kernels at the served shapes (the layer report's GEMMs, the prefill's
-    attention with each window its layers use, the decode against each
-    cache width, bf16 on the main path and f32 beside it), then
+    """A dense or MoE config at full width (``n_layers`` layers, 0 for
+    all): its kernels at the served shapes (the layer report's GEMMs, the
+    prefill's attention with each window its layers use, the decode
+    against each cache width, bf16 on the main path and f32 beside it;
+    an MoE config's dispatch, ``check_moe_dispatch``), then
     ``launch.serve`` with every counter from 0, the launch counts required
     (flash attention once per layer of each batch, flash decode once per
-    layer of each decode step), kernel path against plain path, and a
-    profiled prefill."""
+    layer of each decode step), kernel path against plain path
+    (``compare_dense``, or ``compare_moe``), and a profiled prefill (and,
+    for an MoE config, 4 profiled decode steps)."""
     cfg = configs.get_config(arch)
     if n_layers:
         cfg = cfg.replace(n_layers=n_layers)
@@ -1283,6 +1479,8 @@ def serve_dense(rec: Record, dev, gen, arch: str, n_layers: int) -> dict:
             check_decode(rec, dev, gen, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
                          s=width, d=hd, lens=(1, 700, width - 31, width),
                          dtype=dtype, main_path=dtype == torch.bfloat16)
+    dispatch = check_moe_dispatch(cfg, dev) if cfg.family == "moe" \
+        else None
     args = ["--arch", arch, "--batch", str(BATCH), "--prompt-len",
             str(DENSE_PROMPT), "--max-new", str(MAX_NEW), "--requests",
             str(REQUESTS), "--max-len", str(DENSE_MAX_LEN), "--seed", "0",
@@ -1305,14 +1503,18 @@ def serve_dense(rec: Record, dev, gen, arch: str, n_layers: int) -> dict:
     if launches["matmul"] <= 0:
         raise AssertionError(f"{arch}: the layer report never launched "
                              "matmul")
-    compared, model, params = compare_dense(cfg, dev)
+    compared, model, params = compare_moe(cfg, dev) \
+        if cfg.family == "moe" else compare_dense(cfg, dev)
     prof = profile_prefill(model, params, DENSE_PROMPT, DENSE_MAX_LEN)
+    prof_decode = profile_decode(model, params) if cfg.family == "moe" \
+        else None
     del model, params
     torch.cuda.empty_cache()
     return dict(n_layers=cfg.n_layers, tok_per_s=stats["tok_per_s"],
                 new_tokens=stats["new_tokens"], seconds=stats["seconds"],
                 batch_seconds=stats["batch_seconds"], launches=launches,
-                required=expected, compare=compared, profile_prefill=prof)
+                required=expected, compare=compared, profile_prefill=prof,
+                profile_decode=prof_decode, dispatch=dispatch)
 
 
 def main() -> None:
@@ -1470,10 +1672,17 @@ def main() -> None:
         print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
               f"{dense[arch]['tok_per_s']:.1f} tok/s", flush=True)
 
+    # phase 10: the MoE family at full width and depth, one after another
+    moes = {}
+    for arch in MOE_ARCHS:
+        moes[arch] = serve_dense(rec, dev, gen, arch, 0)
+        print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
+              f"{moes[arch]['tok_per_s']:.1f} tok/s", flush=True)
+
     # the kernels line, launches summed over every main path
     paths = [serve_launches, train_launches] + [
         r["launches"] for r in (*ssm.values(), *ssm_train.values(),
-                                *dense.values())]
+                                *dense.values(), *moes.values())]
     launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     kernels = []
     for name, meta in KERNELS.items():
@@ -1514,7 +1723,7 @@ def main() -> None:
             resumed_from=resumed["report"].resumed_from,
             resumed_steps=resumed["report"].steps_run, gates=gates,
             profile=train_prof),
-        ssd=ssd, ssm=ssm, ssm_train=ssm_train, dense=dense,
+        ssd=ssd, ssm=ssm, ssm_train=ssm_train, dense=dense, moe=moes,
         launches=launches,
         cases=rec.cases)
     OUT_DIR.mkdir(exist_ok=True)

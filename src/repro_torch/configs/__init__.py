@@ -1,22 +1,26 @@
 """Config registry: ``--arch <id>`` lookup.
 
 The counterpart of ``repro/configs/__init__.py``.  It holds the dense
-archs (qwen3-0.6b, stablelm-12b, gemma3-12b, command-r-plus-104b) and the
-SSM ones (mamba2-2.7b, zamba2-2.7b) under the reference's ids; the MoE,
-encoder-decoder and VLM archs come with their slices.
+archs (qwen3-0.6b, stablelm-12b, gemma3-12b, command-r-plus-104b), the
+MoE ones (deepseek-moe-16b, olmoe-1b-7b) and the SSM ones (mamba2-2.7b,
+zamba2-2.7b) under the reference's ids; the encoder-decoder and VLM archs
+come with their slices.
 """
 from __future__ import annotations
 
 from repro_torch.models.config import ArchConfig
 
-from . import (command_r_plus_104b, gemma3_12b, mamba2_2_7b, qwen3_0_6b,
-               stablelm_12b, zamba2_2_7b)
+from . import (command_r_plus_104b, deepseek_moe_16b, gemma3_12b,
+               mamba2_2_7b, olmoe_1b_7b, qwen3_0_6b, stablelm_12b,
+               zamba2_2_7b)
 
 _MODULES = {
     "qwen3-0.6b": qwen3_0_6b,
     "stablelm-12b": stablelm_12b,
     "gemma3-12b": gemma3_12b,
     "command-r-plus-104b": command_r_plus_104b,
+    "deepseek-moe-16b": deepseek_moe_16b,
+    "olmoe-1b-7b": olmoe_1b_7b,
     "mamba2-2.7b": mamba2_2_7b,
     "zamba2-2.7b": zamba2_2_7b,
 }

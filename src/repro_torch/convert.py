@@ -1,16 +1,18 @@
 """Carry parameter trees between the JAX package's layout and the port's.
 
 ``params_from_jax(cfg, tree)`` takes the tree that the reference's
-``init_params`` returns (``transformer``, ``mamba`` or ``zamba``), with its
-leaves as numpy arrays (``jax.tree.map(np.asarray, params)``), and returns
-the port's parameters with the same key paths.  The reference stacks every
-layer leaf as ``(n_groups, ...)`` inside a list of ``per`` subtrees (one
-per position in the layer pattern); the port keeps one dict per layer, so
-layer ``g * per + j`` is leaf ``[g]`` of subtree ``j``.  zamba2's
-``loras``, one adapter per group stacked ``(n_groups, ...)`` in the
-reference, become a list with one dict per group.  Weight layouts stay
-``(in, out)``, as ``x @ W`` uses them.  numpy has no bfloat16: bf16
-leaves arrive as ``ml_dtypes.bfloat16`` and cross as raw bits.
+``init_params`` returns (``transformer``, ``moe``, ``mamba`` or
+``zamba``), with its leaves as numpy arrays (``jax.tree.map(np.asarray,
+params)``), and returns the port's parameters with the same key paths.
+The reference stacks every layer leaf as ``(n_groups, ...)`` inside a
+list of ``per`` subtrees (one per position in the layer pattern); the
+port keeps one dict per layer, so layer ``g * per + j`` is leaf ``[g]`` of
+subtree ``j``.  zamba2's ``loras``, one adapter per group stacked
+``(n_groups, ...)`` in the reference, become a list with one dict per
+group.  The MoE family's ``dense_layers``, a plain list of dicts in the
+reference, stay one.  Weight layouts stay ``(in, out)``, as ``x @ W`` uses
+them.  numpy has no bfloat16: bf16 leaves arrive as
+``ml_dtypes.bfloat16`` and cross as raw bits.
 
 ``params_to_jax`` is the inverse, for any param-shaped tree (params, and
 the optimizer's ``mu``, ``nu`` and ``err``); ``to_reference_layout`` and

@@ -8,7 +8,8 @@ queue.  Runs on ``--device cuda`` unless asked otherwise; ``--attn kernel``
 sends attention and the SSD through the Hopper kernels, ``--attn plain``
 through plain PyTorch; ``--n-layers`` keeps the arch's width and cuts its
 depth, for a model whose weights pass one card (command-r-plus-104b's
-208 GB in bf16).  Before serving, as the reference prints its
+208 GB in bf16); an MoE arch keeps its leading dense layers, so N must
+exceed them.  Before serving, as the reference prints its
 per-layer cycle report, this prints ``launch.layers.layer_report``: the
 model's block GEMMs at the decode batch through the Covenant-tiled GEMM
 kernel, timed on the device.
@@ -92,6 +93,9 @@ def main(argv: list[str] | None = None) -> dict:
 
     cfg = configs.get_config(args.arch, smoke=args.smoke)
     if args.n_layers:
+        if args.n_layers <= cfg.first_dense:
+            ap.error(f"--n-layers must exceed {cfg.name}'s "
+                     f"{cfg.first_dense} leading dense layers")
         cfg = cfg.replace(n_layers=args.n_layers)
     before = kernel_launches()
     print(layer_report(cfg, tokens=args.batch, device=args.device,

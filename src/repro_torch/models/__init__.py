@@ -9,9 +9,9 @@
 * ``decode_step(params, tokens, cache)``    -> (logits (B,V), cache)
 
 It holds the ``dense`` family (qwen3, stablelm, gemma3, command-r), the
-``ssm`` one (mamba2) and the ``hybrid`` one (zamba2); ``get_model`` raises
-for ``moe``, ``audio`` and ``vlm``, and ``extra_inputs`` comes with the
-encoder-decoder and VLM families.
+``moe`` one (deepseek-moe, olmoe), the ``ssm`` one (mamba2) and the
+``hybrid`` one (zamba2); ``get_model`` raises for ``audio`` and ``vlm``,
+and ``extra_inputs`` comes with the encoder-decoder and VLM families.
 Everything runs on ``device`` (``cuda`` unless the caller asks for
 ``cpu``); ``loss_fn`` takes a batch of numpy arrays or tensors and moves it
 there.  ``attn`` picks the path of every kernel of the model: the kernel
@@ -25,7 +25,8 @@ from typing import Any, Callable
 
 import torch
 
-from . import attention, common, config, mamba, ssm, transformer, zamba
+from . import (attention, common, config, mamba, moe, ssm, transformer,
+               zamba)
 from .config import ArchConfig
 
 
@@ -72,7 +73,8 @@ def get_model(cfg: ArchConfig, *, device: str | torch.device = "cuda",
     )
 
 
-_FAMILIES = {"dense": transformer, "ssm": mamba, "hybrid": zamba}
+_FAMILIES = {"dense": transformer, "moe": moe, "ssm": mamba,
+             "hybrid": zamba}
 
 __all__ = ["ArchConfig", "Model", "attention", "common", "config",
-           "get_model", "mamba", "ssm", "transformer", "zamba"]
+           "get_model", "mamba", "moe", "ssm", "transformer", "zamba"]

@@ -117,8 +117,10 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def init_mlp(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    dm, ff = cfg.d_model, cfg.d_ff
+def init_mlp(cfg: ArchConfig, gen: torch.Generator, d_ff: int | None = None
+             ) -> dict:
+    dm = cfg.d_model
+    ff = d_ff or cfg.d_ff
     dtype = pdt(cfg)
     if cfg.mlp in ("swiglu", "geglu"):
         return {

@@ -223,21 +223,37 @@ def _scatter_write(cache_k: torch.Tensor, k_new: torch.Tensor,
     cache_k[bi, hi, pos[:, None].long()] = k_new.to(cache_k.dtype)
 
 
+def _serve_layers(cfg: ArchConfig, params: dict) -> list[tuple]:
+    """(layer params, is local, its step after attention) for each layer:
+    ``step(x, h, o)`` takes the residual stream, the ``ln1`` norm and the
+    attention output before ``wo`` and returns the layer's output."""
+    return [(lp, local, functools.partial(_residual_block, cfg, lp))
+            for lp, local in zip(params["layers"], layer_is_local(cfg))]
+
+
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
             cache: dict, attn: str = "kernel") -> tuple[torch.Tensor, dict]:
     """Process the prompt; returns (last-token logits (B,V), the cache),
     whose k/v tensors are filled in place."""
+    return _prefill(cfg, params, _serve_layers(cfg, params), tokens, cache,
+                    attn)
+
+
+def _prefill(cfg: ArchConfig, params: dict, layers: list[tuple],
+             tokens: torch.Tensor, cache: dict, attn: str
+             ) -> tuple[torch.Tensor, dict]:
+    """``prefill`` over ``layers`` as ``_serve_layers`` gives them, one
+    cache entry each; the MoE family passes its own."""
     x = embed_tokens(cfg, params["embed"], tokens)
     s = x.shape[1]
     rope = _rope(cfg, torch.arange(s, device=x.device))
-    for lp, local, kv in zip(params["layers"], layer_is_local(cfg),
-                             cache["layers"]):
+    for (lp, local, step), kv in zip(layers, cache["layers"]):
         h = apply_norm(cfg, lp["ln1"], x)
         o, k, v = _self_attention(cfg, lp["attn"], h, local=local,
                                   rope=rope, attn=attn)
         _cache_write_prefill(kv["k"], k)
         _cache_write_prefill(kv["v"], v)
-        x = _residual_block(cfg, lp, x, h, o)
+        x = step(x, h, o)
     h = apply_norm(cfg, params["ln_f"], x[:, -1:])
     logits = logits_from_hidden(cfg, params["embed"], h)[:, 0]
     return logits, {"layers": cache["layers"], "length": cache["length"] + s}
@@ -248,12 +264,20 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                 ) -> tuple[torch.Tensor, dict]:
     """One token for every sequence.  tokens: (B,) int; the cache's k/v
     tensors are updated in place."""
+    return _decode_step(cfg, params, _serve_layers(cfg, params), tokens,
+                        cache, attn)
+
+
+def _decode_step(cfg: ArchConfig, params: dict, layers: list[tuple],
+                 tokens: torch.Tensor, cache: dict, attn: str
+                 ) -> tuple[torch.Tensor, dict]:
+    """``decode_step`` over ``layers`` as ``_serve_layers`` gives them."""
     b = tokens.shape[0]
     x = embed_tokens(cfg, params["embed"], tokens[:, None])  # (B,1,D)
     length = cache["length"]  # (B,)
     rope = _rope(cfg, length[:, None])
     slots = {}  # cache width -> (write slot, valid length), as per layer
-    for lp, kv in zip(params["layers"], cache["layers"]):
+    for (lp, _, step), kv in zip(layers, cache["layers"]):
         h = apply_norm(cfg, lp["ln1"], x)
         q, k, v = _qkv(cfg, lp["attn"], h)       # (B,H,1,D)
         if rope is not None:
@@ -269,7 +293,7 @@ def decode_step(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         o = attn_lib.decode_attention_for(q[:, :, 0], kv["k"], kv["v"],
                                           valid, attn=attn)
         o = o.reshape(b, 1, cfg.n_heads * cfg.hd)
-        x = _residual_block(cfg, lp, x, h, o)
+        x = step(x, h, o)
     h = apply_norm(cfg, params["ln_f"], x)
     logits = logits_from_hidden(cfg, params["embed"], h)[:, 0]
     return logits, {"layers": cache["layers"], "length": length + 1}

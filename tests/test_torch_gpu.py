@@ -1024,3 +1024,77 @@ def test_flash_decode_refuses_unbuilt_shapes_on_card(cuda):
         with pytest.raises(ValueError):
             flash_decode(q, k, k, kv_len)
         assert flash_decode.launches == before
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "olmoe-1b-7b"])
+def test_moe_dispatch_on_card_matches_cpu(cuda, arch):
+    """One MoE layer at full width, f32, 2 x 512 tokens that share a
+    component (so a few experts overflow their capacity): the card keeps
+    the same (token, expert) assignments as the CPU, its output is within
+    1e-4 relative L2 of the CPU's, and two card runs are bit-equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch).replace(param_dtype="float32",
+                                   compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe_ffn(cfg, gen)
+    x = torch.randn((2, 512, cfg.d_model), generator=gen) + \
+        0.25 * torch.randn((cfg.d_model,), generator=gen)
+    pd, xd = tree_map(lambda a: a.to(cuda), p), x.to(cuda)
+    got, again = moe.moe_ffn(cfg, pd, xd), moe.moe_ffn(cfg, pd, xd)
+    want = moe.moe_ffn(cfg, p, x)
+    kept = moe.kept_assignments(cfg, p, x)
+    assert int(kept.sum()) < 1024 * cfg.top_k
+    assert torch.equal(moe.kept_assignments(cfg, pd, xd).cpu(), kept)
+    assert torch.equal(got, again)
+    assert float((got.cpu() - want).norm() / want.norm()) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "olmoe-1b-7b"])
+def test_moe_serve_cli_two_layers_on_card(cuda, arch):
+    """The serve CLI at full width and 2 layers (deepseek: its dense layer
+    and one MoE layer): flash attention once per layer of each batch,
+    flash decode once per layer of each decode step, the layer report's
+    GEMMs through the kernel."""
+    from repro_torch.launch.serve import main as serve_main
+
+    stats = serve_main(["--arch", arch, "--n-layers", "2", "--prompt-len",
+                        "128", "--max-len", "160", "--requests", "4",
+                        "--max-new", "4"])
+    torch.cuda.synchronize()
+    launches = stats["launches"]
+    assert stats["new_tokens"] > 0
+    assert launches["flash_attention"] == 2 * stats["batches"]
+    assert launches["flash_decode"] == 2 * stats["decode_steps"]
+    assert launches["matmul"] > 0
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "olmoe-1b-7b"])
+def test_moe_decode_step_has_no_host_sync_on_card(cuda, arch):
+    """One MoE decode step at full width and 2 layers, after a warm-up
+    step, runs under ``torch.cuda.set_sync_debug_mode("error")``: nothing
+    on the path (routing, capacity, dispatch, combine, attention) waits
+    for the card, so a CUDA graph can capture the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+
+    cfg = get_config(arch).replace(n_layers=2)
+    model = get_model(cfg, device=cuda)
+    params = model.init_params(0)
+    tokens = torch.randint(2, cfg.vocab, (4, 64), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    logits, cache = model.prefill(params, {"tokens": tokens},
+                                  model.init_cache(4, 80))
+    logits, cache = model.decode_step(params, logits.argmax(-1), cache)
+    torch.cuda.synchronize()
+    nxt = logits.argmax(-1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = model.decode_step(params, nxt, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert logits.shape == (4, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
