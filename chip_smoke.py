@@ -10,10 +10,13 @@
    a register spill) and the card's name and power limit;
 2. holds each kernel against its plain PyTorch version on the card, in the
    working dtype, at the shapes the main paths give it, and times kernel,
-   plain version and one PyTorch library call with CUDA events and by
-   their kernels' device time under ``torch.profiler`` (``device_ms``);
+   plain version and one PyTorch library call with CUDA events around a
+   loop of host calls and by their device time, CUDA events around calls
+   the card runs back to back while a spin kernel holds the stream
+   (``device_ms``);
    the forward, the decode and the backward must give bit-equal results
-   on two runs;
+   on two runs, the forward and the decode also within a relative L2 of
+   their plain versions (``ATTN_REL_L2``);
 3. serve: drives ``repro_torch.launch.serve``: the Covenant GEMM report of
    the model's block GEMMs, then full-width qwen3-0.6b with seeded random
    bf16 weights serving 8 requests (batch 4, prompt 512, 32 new tokens)
@@ -74,8 +77,31 @@
    plain path's own one-ulp spread and the (token, expert) assignments
    that differ between the paths in each layer; a profiled prefill and 4
    profiled decode steps;
-11. prints a ``kernels`` JSON line (six kernels, launches summed over every
-   path) and, last, the ``ok`` JSON line; the per-case details go to
+11. serves whisper-base, then paligemma-3b, at full width and depth,
+   with seeded random bf16 weights
+   (whisper: 16 requests, batch 8 of (8, 1500, 512) frames, prompt 4, 128
+   new tokens, cache 448; paligemma: 8 requests, batch 4 of (4, 256,
+   1152) patches, prompt 32, 32 new tokens, cache 320), each freed before
+   the next loads: first their GEMM,
+   attention and decode shapes in bf16 and f32 (whisper's non-causal
+   encoder forward over 1500 frames and cross attention of the prompt
+   against them, its causal decoder prompt, its decode against the self
+   cache and against the full cross cache; paligemma's causal forward at
+   head dim 256 and group 8 over image prefix and prompt, and its
+   decode), and whisper's ragged key edge at 1500 left unmasked on
+   purpose, which the bf16 gates must reject (``planted_faults``); then
+   ``launch.serve`` with every counter from 0, flash
+   attention required once per attention of each batch (whisper: each
+   encoder layer, and each decoder layer's self and cross attention) and
+   flash decode once per attention of each decode step; the kernel path
+   against the plain path over the prefill and 8 decode steps, gated in
+   f32 (1e-4) and in bf16 (beside the plain path's own one-ulp spread); a
+   profiled prefill, and for whisper 4 profiled decode steps;
+12. prints the count of ``device_ms`` windows taken again as the host
+   fell behind and of profiler windows that lost records, and what they
+   left (``launch.layers.DEVICE_WINDOWS``, ``PROFILER_WINDOWS``), a
+   ``kernels`` JSON line (six kernels, launches summed over every path)
+   and, last, the ``ok`` JSON line; the per-case details go to
    ``chiprun_out/chip_smoke.json``.
 
 Every phase raises on failure; there is no CPU fallback.
@@ -111,7 +137,8 @@ from repro_torch.kernels.tiling import (  # noqa: E402
     attention_mma_blocks, decode_block_kv, gemm_blocks, ssd_mma_blocks)
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.layers import (  # noqa: E402
-    device_kernels, device_ms, lm_layer_gemms, mean_ms)
+    DEVICE_WINDOWS, PROFILER_WINDOWS, device_ms, lm_layer_gemms, mean_ms,
+    profile_window)
 from repro_torch.models import get_model, moe  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime import (make_loss_with_accum,  # noqa: E402
@@ -146,6 +173,17 @@ SSD_REF_ATOL = 2e-3                  # tests/test_kernels.py SSD bound
 U32 = 2.0 ** -24          # f32 unit roundoff
 ATTN_BF16_ATOL = 2e-2     # tests/test_kernels.py bf16 attention bound
 ATTN_F32_ATOL = 2e-3      # tests/test_kernels.py f32 attention bound
+# relative L2 of a forward's or decode's output against its plain version,
+# beside the absolute bounds, which at 1500 keys sit near half a typical
+# output (std about sqrt(e / 1500) = 0.043).  bf16: the kernel rounds P to
+# bf16 before P @ V and the output to bf16, the plain version only the
+# output; each rounding moves a value by at most 2^-8 of itself, so two
+# give at most 2^-7 = 7.8e-3.  A key of a padded block left unmasked takes
+# about 1.4 % of a row's weight at 1500 keys (36 zero keys against 1500 of
+# mean weight e^0.5), and moves the output by that (``planted_faults``).
+# f32: the sums over up to 2080 keys in another order, about
+# sqrt(2080) * 2^-24 = 2.7e-6; 1e-4 leaves a factor 37
+ATTN_REL_L2 = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
 LSE_ATOL = 1e-3           # f32 log-sum-exp of the same inputs, values < 10
 LOGITS_REL_L2 = 5e-2      # see compare_paths
 LOSS_REL_F32 = 1e-4       # see compare_train_paths
@@ -224,6 +262,16 @@ MOE_ARCHS = {"deepseek-moe-16b": 4, "olmoe-1b-7b": 0}
 # to about 80 % of it, and nothing is dropped)
 MOE_COMMON = 0.1
 MOE_DISPATCH_REL_L2 = 1e-4   # see check_moe_dispatch
+ENCDEC_VLM_F32_REL_L2 = 1e-4  # see compare_encdec_vlm
+# the encoder-decoder and VLM families at full width and depth: (batch,
+# prompt, new tokens, cache, requests).  whisper-base: 8 30-second segments
+# ((8, 1500, 512) frames), Whisper's 4 start tokens, 128 new, its 448-token
+# decoder context, 16 requests; paligemma-3b: 4 224-px images ((4, 256,
+# 1152) patches), 32-token prompts, 32 new, a cache of 256 + 32 + 32, 8
+# requests
+ENCDEC_VLM = {"whisper-base": (8, 4, 128, 448, 16),
+              "paligemma-3b": (4, 32, 32, 320, 8)}
+COMPARE_STEPS = 8            # decode steps of compare_encdec_vlm
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -258,9 +306,10 @@ class Record:
 
     def add(self, name, case, *, err, ok, tol, ms, plain_ms, bound_ms,
             bound_by, library_ms, main_path, device_ms=None,
-            library_device_ms=None):
+            library_device_ms=None, rel_l2=None, rel_tol=None):
         self.cases.append(dict(kernel=name, case=case, max_abs_err=err,
-                               tol=tol, ok=bool(ok), ms=ms, plain_ms=plain_ms,
+                               tol=tol, rel_l2=rel_l2, rel_tol=rel_tol,
+                               ok=bool(ok), ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
                                library_ms=library_ms, main_path=main_path,
                                device_ms=device_ms,
@@ -270,13 +319,22 @@ class Record:
             f" device_ms={device_ms:.4f} library_device_ms="
             + ("null" if library_device_ms is None
                else f"{library_device_ms:.4f}"))
+        rel = "" if rel_l2 is None else (
+            f" rel_l2={rel_l2:.3e} (tol {rel_tol:.3e})")
         print(f"[check] {name:15s} {case:44s} max_abs_err={err:.3e} "
-              f"(tol {tol}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"(tol {tol}){rel} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib}{dev} bound_ms={bound_ms:.4f} ({bound_by}) "
               f"{'ok' if ok else 'FAILED'}", flush=True)
         if not ok:
             raise AssertionError(f"{name} {case}: max_abs_err {err}, "
-                                 f"tolerance {tol}")
+                                 f"tolerance {tol}; rel_l2 {rel_l2}, "
+                                 f"tolerance {rel_tol}")
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want||, in f32."""
+    d = got.float() - want.float()
+    return float(d.norm() / want.float().norm())
 
 
 # ---------------------------------------------------------------------------
@@ -335,54 +393,63 @@ def check_gemm(rec: Record, dev, gen, m: int, n: int, k: int,
 def check_attention(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=PROMPT,
                     d=128, *, window: int | None = None,
                     dtype: torch.dtype = torch.bfloat16,
-                    main_path: bool = True) -> None:
+                    main_path: bool = True, causal: bool = True,
+                    sq: int | None = None) -> None:
     """``ops.covenant_attention`` (the prefill's causal forward, with the
-    model's sliding ``window`` or none) against its plain version, with
-    CUDA-event and device times beside SDPA's (``enable_gqa``; a window
-    goes to it as a boolean mask)."""
-    q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype)
+    model's sliding ``window`` or none; or, with ``causal=False``, an
+    encoder's or a cross attention's, ``sq`` queries against ``s`` keys)
+    against its plain version, with CUDA-event and device times beside
+    SDPA's (``enable_gqa``; a window goes to it as a boolean mask)."""
+    sq = s if sq is None else sq
+    q = torch.randn((b, hq, sq, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, hkv, s, d), generator=gen, device=dev).to(dtype)
-    qf, kf, vf = (q.reshape(b * hq, s, d), k.reshape(b * hkv, s, d),
+    qf, kf, vf = (q.reshape(b * hq, sq, d), k.reshape(b * hkv, s, d),
                   v.reshape(b * hkv, s, d))
     run = lambda: ops.covenant_attention(  # noqa: E731
-        q, k, v, causal=True, window=window)
+        q, k, v, causal=causal, window=window)
     got = run()
-    want = flash_attention_plain(qf, kf, vf, causal=True,
+    want = flash_attention_plain(qf, kf, vf, causal=causal,
                                  window=window).reshape(q.shape)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
+    rel = rel_l2(got, want)
     del got, want
     same = bit_equal(run)
     ms = mean_ms(run, dev, 10)
     dev_ms = device_ms(run)
     plain_ms = mean_ms(lambda: flash_attention_plain(
-        qf, kf, vf, causal=True, window=window), dev, 10)
+        qf, kf, vf, causal=causal, window=window), dev, 10)
     mask = None
     if window is not None:
         i = torch.arange(s, device=dev)
         mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
     library_ms = mean_ms(sdpa, dev, 10)
     library_dev_ms = device_ms(sdpa)
     del mask
-    pairs = _pairs(b, hq, s, True, window)       # visible (q, k) pairs
-    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * q.element_size()
+    pairs = _pairs(b, hq, s, causal, window, sq)  # visible (q, k) pairs
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * s * d) * q.element_size()
     bf16 = dtype == torch.bfloat16
     b_ms, b_by = bound(4.0 * pairs * d, H100["peak_bf16_flops"] if bf16
                        else H100["peak_f32_flops"], nbytes)
     bq, bkv = (attention_mma_blocks if bf16 else attention_blocks)(
-        s, s, d, heads=b * hq)
+        sq, s, d, heads=b * hq)
+    seqs = f"S{s}" if sq == s else f"Sq{sq} Sk{s}"
+    mode = f"causal w{window or 0}" if causal else "noncausal"
     rec.add("flash_attention",
-            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal w{window or 0} "
+            f"B{b} Hq{hq} Hkv{hkv} {seqs} D{d} {mode} "
             f"{'bf16' if bf16 else 'f32'} b{bq}x{bkv} "
             f"{'bit-equal' if same else 'NOT bit-equal'}", err=err,
-            ok=err <= (ATTN_BF16_ATOL if bf16 else ATTN_F32_ATOL) and same,
+            ok=(err <= (ATTN_BF16_ATOL if bf16 else ATTN_F32_ATOL)
+                and rel <= ATTN_REL_L2[dtype] and same),
             tol=ATTN_BF16_ATOL if bf16 else ATTN_F32_ATOL, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
-            library_device_ms=library_dev_ms)
+            library_device_ms=library_dev_ms, rel_l2=rel,
+            rel_tol=ATTN_REL_L2[dtype])
 
 
 def check_decode(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=MAX_LEN,
@@ -404,6 +471,7 @@ def check_decode(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=MAX_LEN,
                               kv_heads=hkv).reshape(b, hq, d)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
+    rel = rel_l2(got, want)
     same = bit_equal(run)
     ms = mean_ms(run, dev, 50)
     dev_ms = device_ms(run)
@@ -425,10 +493,61 @@ def check_decode(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=MAX_LEN,
     rec.add("flash_decode",
             f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} {'bf16' if bf16 else 'f32'} "
             f"ragged split{bkv} {'bit-equal' if same else 'NOT bit-equal'}",
-            err=err, ok=err <= tol and same, tol=tol, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            err=err, ok=err <= tol and rel <= ATTN_REL_L2[dtype] and same,
+            tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
-            library_device_ms=library_dev_ms)
+            library_device_ms=library_dev_ms, rel_l2=rel,
+            rel_tol=ATTN_REL_L2[dtype])
+
+
+def planted_faults(dev, gen, b, hq, hkv, d, sk, sq) -> dict:
+    """The bf16 gates of ``check_attention`` and ``check_decode`` against
+    the fault they must catch at a ragged key edge, planted on the
+    caller's side: keys and values padded with zeros to the next multiple
+    of 64 and left unmasked, as the forward reads its last block's tail
+    (loaded as zeros) if it drops its ``kpos < Sk`` term, and as a decode
+    reads its last split if it reads past ``kv_len``.  Each faulty output
+    is held against the plain version on the unpadded inputs; raises
+    unless ``ATTN_REL_L2`` rejects it.  Returns the readings, beside
+    whether ``ATTN_BF16_ATOL`` alone would have."""
+    pad, dtype = -sk % 64, torch.bfloat16
+    tol, rel_tol = ATTN_BF16_ATOL, ATTN_REL_L2[dtype]
+    k = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, hkv, sk, d), generator=gen, device=dev).to(dtype)
+    kp, vp = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+    kf, vf = k.reshape(b * hkv, sk, d), v.reshape(b * hkv, sk, d)
+    out = {}
+    for name, nq in (("forward encoder", sk), ("forward cross", sq),
+                     ("decode cross", None)):
+        if nq is None:
+            q = torch.randn((b, hq, d), generator=gen, device=dev).to(dtype)
+            full = torch.full((b,), sk + pad, device=dev, dtype=torch.int32)
+            got = ops.covenant_decode_attention(
+                q, kp, vp, full,
+                block_kv=decode_block_kv(b * hkv, sk + pad, d, hq // hkv))
+            want = flash_decode_plain(
+                q.reshape(b * hkv, hq // hkv, d), kf, vf,
+                torch.full((b,), sk, device=dev, dtype=torch.int32),
+                kv_heads=hkv).reshape(q.shape)
+        else:
+            q = torch.randn((b, hq, nq, d), generator=gen,
+                            device=dev).to(dtype)
+            got = ops.covenant_attention(q, kp, vp, causal=False)
+            want = flash_attention_plain(q.reshape(b * hq, nq, d), kf, vf,
+                                         causal=False).reshape(q.shape)
+        err, rel = float((got.float() - want.float()).abs().max()), \
+            rel_l2(got, want)
+        out[name] = dict(max_abs_err=err, rel_l2=rel, atol_caught=err > tol,
+                         rel_caught=rel > rel_tol)
+        print(f"[fault] {name} B{b} Hq{hq} Hkv{hkv} Sk{sk} D{d} bf16, keys "
+              f"padded with zeros to {sk + pad} and unmasked: max_abs_err="
+              f"{err:.3e} (tol {tol}: {'caught' if err > tol else 'passes'})"
+              f" rel_l2={rel:.3e} (tol {rel_tol:.3e}: "
+              f"{'caught' if rel > rel_tol else 'passes'})", flush=True)
+        if rel <= rel_tol:
+            raise AssertionError(f"the bf16 gate passes a planted fault: "
+                                 f"{name} rel_l2 {rel} <= {rel_tol}")
+    return out
 
 
 def _train_qkv(dev, gen, b, hq, hkv, s, d, dtype):
@@ -438,11 +557,13 @@ def _train_qkv(dev, gen, b, hq, hkv, s, d, dtype):
             for sh in shapes]
 
 
-def _pairs(b, hq, s, causal, window) -> float:
-    """Visible (q, k) pairs of a (B*Hq, S, S) self attention."""
-    i = np.arange(s)[:, None]
+def _pairs(b, hq, s, causal, window, sq=None) -> float:
+    """Visible (q, k) pairs of a (B*Hq, Sq, S) attention, q row 0 at kv
+    position S - Sq (Sq = S: self attention)."""
+    sq = s if sq is None else sq
+    i = np.arange(sq)[:, None] + (s - sq)
     j = np.arange(s)[None, :]
-    mask = np.ones((s, s), bool)
+    mask = np.ones((sq, s), bool)
     if causal:
         mask &= j <= i
     if window:
@@ -561,12 +682,13 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
 
 
 def compare_paths(cfg, dev, prompt: int = PROMPT, max_len: int = MAX_LEN,
-                  tol: float | None = LOGITS_REL_L2
-                  ) -> tuple[dict, dict, object, dict]:
-    """Prefill last-token logits and the logits of 4 decode steps fed the
-    same tokens, kernel path against plain path, same weights; gated at
-    relative L2 ``tol`` (None: printed only).  Returns (relative L2 by
-    step, argmax agreement by step, the kernel-path model, the weights).
+                  tol: float | None = LOGITS_REL_L2, batch: int = BATCH,
+                  steps: int = 4) -> tuple[dict, dict, object, dict]:
+    """Prefill last-token logits and the logits of ``steps`` decode steps
+    fed the same tokens, kernel path against plain path, same weights;
+    gated at relative L2 ``tol`` (None: printed only).  Returns (relative
+    L2 by step, argmax agreement by step, the kernel-path model, the
+    weights).
 
     Bounds, each stated before the run that first held it:
     * qwen3-0.6b in bf16, 5e-2: the two paths differ only inside
@@ -581,31 +703,39 @@ def compare_paths(cfg, dev, prompt: int = PROMPT, max_len: int = MAX_LEN,
       against itself with one weight moved one bf16 ulp is printed beside
       it (``compare_dense``).
     * deepseek-moe-16b (4 layers) and olmoe-1b-7b in f32, 5e-2, printed in
-      bf16 at full depth (see ``compare_moe``)."""
+      bf16 at full depth (see ``compare_moe``).
+    * whisper-base and paligemma-3b at full depth in f32, 1e-4, and in
+      bf16, 5e-2, over 8 decode steps (see ``compare_encdec_vlm``)."""
     kmodel = get_model(cfg, device=dev, attn="kernel")
     pmodel = get_model(cfg, device=dev, attn="plain")
     params = kmodel.init_params(1)
     rel, agree = _compare(kmodel, pmodel, params, params, prompt, max_len,
-                          f"{cfg.name} {cfg.compute_dtype}", tol)
+                          f"{cfg.name} {cfg.compute_dtype}", tol, batch,
+                          steps)
     return rel, agree, kmodel, params
 
 
 def _compare(amodel, bmodel, aparams, bparams, prompt, max_len, label,
-             tol) -> tuple[dict, dict]:
-    """Logits of ``amodel`` against ``bmodel`` at prefill and 4 decode
-    steps fed ``bmodel``'s argmax; relative L2 and argmax agreement by
-    step, gated at ``tol`` unless it is None."""
+             tol, batch: int = BATCH, n_steps: int = 4
+             ) -> tuple[dict, dict]:
+    """Logits of ``amodel`` against ``bmodel`` at prefill and ``n_steps``
+    decode steps fed ``bmodel``'s argmax, both given the same prompt (and
+    stub frontend inputs, ``serve.extra_inputs``); relative L2 and argmax
+    agreement by step, gated at ``tol`` unless it is None."""
     cfg = amodel.cfg
     rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(2, cfg.vocab, (BATCH, prompt)),
+    toks = torch.as_tensor(rng.integers(2, cfg.vocab, (batch, prompt)),
                            device=amodel.device)
-    ac, bc = amodel.init_cache(BATCH, max_len), bmodel.init_cache(BATCH,
+    inputs = {"tokens": toks,
+              **serve.extra_inputs(amodel, batch, prompt, rng)}
+    ac, bc = amodel.init_cache(batch, max_len), bmodel.init_cache(batch,
                                                                  max_len)
-    al, ac = amodel.prefill(aparams, {"tokens": toks}, ac)
-    bl, bc = bmodel.prefill(bparams, {"tokens": toks}, bc)
+    al, ac = amodel.prefill(aparams, inputs, ac)
+    bl, bc = bmodel.prefill(bparams, inputs, bc)
+    del inputs
     steps = [(al, bl)]
     tok = bl.argmax(-1)
-    for _ in range(4):
+    for _ in range(n_steps):
         al, ac = amodel.decode_step(aparams, tok, ac)
         bl, bc = bmodel.decode_step(bparams, tok, bc)
         steps.append((al, bl))
@@ -621,9 +751,9 @@ def _compare(amodel, bmodel, aparams, bparams, prompt, max_len, label,
               f"max|logit|={float(b.abs().max()):.3e} "
               f"argmax_agree={agree:.2f} finite={bool(torch.isfinite(a).all())}",
               flush=True)
-        if not torch.isfinite(a).all() or a.shape != (BATCH, cfg.vocab):
+        if not torch.isfinite(a).all() or a.shape != (batch, cfg.vocab):
             raise AssertionError(f"{label} {name}: logits not finite of "
-                                 f"shape {(BATCH, cfg.vocab)}")
+                                 f"shape {(batch, cfg.vocab)}")
         if tol is not None and rel > tol:
             raise AssertionError(f"{label} {name}: rel_l2 {rel} > {tol}")
         out[name], agreed[name] = rel, agree
@@ -679,25 +809,11 @@ def compare_ssm(cfg, dev) -> tuple[dict, object, dict]:
 
 
 def _profile(fn, label: str) -> dict:
-    """``fn()`` once under ``torch.profiler``: wall ms, the summed device
-    time of its kernels (one stream, so the time the card is busy) and the
-    kernels that take most of it.  A profile that lost every kernel record
-    is taken again, at most twice."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = device_kernels(prof)
-        if rows:
-            break
-    else:
-        raise AssertionError(f"torch.profiler saw no device time in {label}")
+    """``fn()`` once under ``torch.profiler`` (``profile_window``, which
+    takes a window again until it kept every record): wall ms, the summed
+    device time of its kernels (one stream, so the time the card is busy)
+    and the kernels that take most of it."""
+    rows, wall_ms = profile_window(fn, label)
     busy = sum(r[1] for r in rows)
     print(f"[profile] {label} under the profiler: wall {wall_ms:.1f} ms, "
           f"device kernels {busy:.1f} ms, busy share {busy / wall_ms:.3f}",
@@ -1191,35 +1307,40 @@ def check_ssd_ref(rec: Record, dev, gen) -> None:
             library_ms=None, main_path=False)
 
 
-def profile_prefill(model, params, prompt: int = SSM_PROMPT,
-                    max_len: int = SSM_MAX_LEN) -> dict:
-    """One prefill of the served shape (kernel path) under the profiler,
-    after one outside it."""
+def _served_inputs(model, batch: int, prompt: int) -> dict:
+    """A seeded prompt batch for ``model``, with its stub frontend's
+    inputs."""
     rng = np.random.default_rng(2)
     toks = torch.as_tensor(rng.integers(2, model.cfg.vocab,
-                                        (BATCH, prompt)),
+                                        (batch, prompt)),
                            device=model.device)
+    return {"tokens": toks,
+            **serve.extra_inputs(model, batch, prompt, rng)}
+
+
+def profile_prefill(model, params, prompt: int = SSM_PROMPT,
+                    max_len: int = SSM_MAX_LEN, batch: int = BATCH) -> dict:
+    """One prefill of the served shape (kernel path) under the profiler,
+    after one outside it."""
+    inputs = _served_inputs(model, batch, prompt)
 
     def run():
-        cache = model.init_cache(BATCH, max_len)
-        return model.prefill(params, {"tokens": toks}, cache)[0]
+        cache = model.init_cache(batch, max_len)
+        return model.prefill(params, inputs, cache)[0]
 
     run()
     return _profile(run, f"{model.cfg.name} prefill")
 
 
 def profile_decode(model, params, steps: int = 4, prompt: int = DENSE_PROMPT,
-                   max_len: int = DENSE_MAX_LEN) -> dict:
+                   max_len: int = DENSE_MAX_LEN, batch: int = BATCH) -> dict:
     """``steps`` decode steps of the served shape (kernel path) under the
     profiler, after a prefill and the same steps outside it.  Each call
     decodes from the prefill's cache, whose k/v rows it rewrites in
     place."""
-    rng = np.random.default_rng(2)
-    toks = torch.as_tensor(rng.integers(2, model.cfg.vocab,
-                                        (BATCH, prompt)),
-                           device=model.device)
-    logits, cache = model.prefill(params, {"tokens": toks},
-                                  model.init_cache(BATCH, max_len))
+    logits, cache = model.prefill(params,
+                                  _served_inputs(model, batch, prompt),
+                                  model.init_cache(batch, max_len))
 
     def run():
         out, c = logits, cache
@@ -1280,25 +1401,28 @@ def serve_ssm(rec: Record, dev, gen, arch: str) -> dict:
                 profile_prefill=prof)
 
 
-def compare_dense(cfg, dev) -> tuple[dict, object, dict]:
+def compare_dense(cfg, dev, prompt: int = DENSE_PROMPT,
+                  max_len: int = DENSE_MAX_LEN, batch: int = BATCH,
+                  steps: int = 4) -> tuple[dict, object, dict]:
     """A dense config at full width, kernel path against plain path in
     bf16 on the same weights, gated at ``LOGITS_REL_L2`` (bound derived in
     ``compare_paths``), then the plain path against itself with one weight
-    of layer 0 (its first norm scale entry) moved by one bf16 ulp: the
-    model's own spread under a change of one rounding, printed beside the
-    gate.  Returns (the comparisons, the kernel-path model, its
+    of (decoder) layer 0 (its first norm scale entry) moved by one bf16
+    ulp: the model's own spread under a change of one rounding, printed
+    beside the gate.  Returns (the comparisons, the kernel-path model, its
     weights)."""
-    rel, agree, model, params = compare_paths(cfg, dev, DENSE_PROMPT,
-                                              DENSE_MAX_LEN)
+    rel, agree, model, params = compare_paths(cfg, dev, prompt, max_len,
+                                              batch=batch, steps=steps)
     pmodel = get_model(cfg, device=dev, attn="plain")
-    lp0 = params["layers"][0]
-    moved = {**params, "layers": [
+    key = "dec_layers" if cfg.family == "audio" else "layers"
+    lp0 = params[key][0]
+    moved = {**params, key: [
         {**lp0, "ln1": {**lp0["ln1"], "scale": lp0["ln1"]["scale"].clone()}}]
-        + params["layers"][1:]}
-    moved["layers"][0]["ln1"]["scale"][0] *= 1 + BF16_ULP
-    srel, sagree = _compare(pmodel, pmodel, moved, params, DENSE_PROMPT,
-                            DENSE_MAX_LEN, f"{cfg.name} bf16 plain, one "
-                            "weight moved one ulp,", None)
+        + params[key][1:]}
+    moved[key][0]["ln1"]["scale"][0] *= 1 + BF16_ULP
+    srel, sagree = _compare(pmodel, pmodel, moved, params, prompt, max_len,
+                            f"{cfg.name} bf16 plain, one weight moved one "
+                            "ulp,", None, batch, steps)
     del moved, pmodel
     return (dict(rel_l2=rel, argmax_agree=agree,
                  plain_spread=dict(rel_l2=srel, argmax_agree=sagree)),
@@ -1486,23 +1610,7 @@ def serve_dense(rec: Record, dev, gen, arch: str, n_layers: int) -> dict:
             str(REQUESTS), "--max-len", str(DENSE_MAX_LEN), "--seed", "0",
             "--device", "cuda", "--attn", "kernel", "--n-layers",
             str(n_layers)]
-    for fn in KERNEL_FNS:
-        fn.launches = 0
-    stats = serve.main(args)
-    torch.cuda.synchronize()
-    launches = serve.kernel_launches()
-    expected = {"flash_attention": cfg.n_layers * stats["batches"],
-                "flash_decode": cfg.n_layers * stats["decode_steps"]}
-    print(f"[serve] {arch} ({cfg.n_layers} layers) launches on the main "
-          f"path: {launches}; required {expected} ({stats['batches']} "
-          f"batches, {stats['decode_steps']} decode steps)", flush=True)
-    for name, n in expected.items():
-        if launches[name] != n or n <= 0:
-            raise AssertionError(f"{arch}: {name} launched {launches[name]}"
-                                 f" times, not {n}")
-    if launches["matmul"] <= 0:
-        raise AssertionError(f"{arch}: the layer report never launched "
-                             "matmul")
+    launches, stats, expected = serve_counted(cfg, args)
     compared, model, params = compare_moe(cfg, dev) \
         if cfg.family == "moe" else compare_dense(cfg, dev)
     prof = profile_prefill(model, params, DENSE_PROMPT, DENSE_MAX_LEN)
@@ -1515,6 +1623,142 @@ def serve_dense(rec: Record, dev, gen, arch: str, n_layers: int) -> dict:
                 batch_seconds=stats["batch_seconds"], launches=launches,
                 required=expected, compare=compared, profile_prefill=prof,
                 profile_decode=prof_decode, dispatch=dispatch)
+
+
+def attention_launches(cfg) -> tuple[int, int]:
+    """(flash attention launches a served batch, flash decode launches a
+    decode step) on ``cfg``'s served path: one a layer each for the dense,
+    MoE and VLM families; whisper adds one a batch for each encoder layer,
+    and its decoder layers attend twice (self and cross) in the prefill
+    and in every step."""
+    if cfg.family == "audio":
+        return cfg.enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
+def serve_counted(cfg, args: list[str]) -> tuple[dict, dict, dict]:
+    """``launch.serve`` on ``args`` with every counter from 0: flash
+    attention and flash decode required ``attention_launches`` times a
+    batch and a decode step, matmul at least once (the layer report).
+    Returns (the launches, serve's stats, the required counts)."""
+    for fn in KERNEL_FNS:
+        fn.launches = 0
+    stats = serve.main(args)
+    torch.cuda.synchronize()
+    launches = serve.kernel_launches()
+    per_batch, per_step = attention_launches(cfg)
+    expected = {"flash_attention": per_batch * stats["batches"],
+                "flash_decode": per_step * stats["decode_steps"]}
+    print(f"[serve] {cfg.name} ({cfg.n_layers} layers) launches on the main "
+          f"path: {launches}; required {expected} ({stats['batches']} "
+          f"batches, {stats['decode_steps']} decode steps)", flush=True)
+    for name, n in expected.items():
+        if launches[name] != n or n <= 0:
+            raise AssertionError(f"{cfg.name}: {name} launched "
+                                 f"{launches[name]} times, not {n}")
+    if launches["matmul"] <= 0:
+        raise AssertionError(f"{cfg.name}: the layer report never launched "
+                             "matmul")
+    return launches, stats, expected
+
+
+def compare_encdec_vlm(cfg, dev, batch: int, prompt: int, max_len: int
+                       ) -> tuple[dict, object, dict]:
+    """whisper-base or paligemma-3b at full width and depth, kernel path
+    against plain path over the prefill and ``COMPARE_STEPS`` decode
+    steps: gated in f32 at ``ENCDEC_VLM_F32_REL_L2``, then in bf16 by the
+    dense configs' rule (``compare_dense``: ``LOGITS_REL_L2``, the plain
+    path's one-ulp spread beside it).  Returns (the comparisons, the bf16
+    kernel-path model, its weights).
+
+    Bounds.  In f32 the paths differ only by the order of f32 sums inside
+    attention (the block GEMMs are the same torch calls on both): about
+    sqrt(1500) * 2^-24 = 2.3e-6 relative an attention at 1500 keys, over
+    18 attentions a token (whisper: 6 encoder layers and 6 decoder layers
+    of two; paligemma: 18 layers) a random walk of sqrt(18) * 2.3e-6 =
+    1e-5; ``ENCDEC_VLM_F32_REL_L2`` = 1e-4 leaves a factor 10 for the
+    network's gain and sits 100 times under the 1e-2 that a 1 % fault
+    (a leaked mask, a wrong kv row at the ragged split, a cross cache off
+    by some frames) moves the logits by.  The first whole run read
+    6.3e-7 / 2.0e-7 (PERF.md section 6).  In bf16,
+    by qwen3's rule, about one bf16 rounding a layer that attends:
+    whisper's 6 encoder layers and 6 decoder layers (two attentions
+    each), sqrt(18) * 2^-8 ~= 1.7e-2; paligemma's 18 layers,
+    sqrt(18) * 2^-8 ~= 1.7e-2.  A wrong mask (one that hid the ragged
+    key edge at 1500, or masked a non-causal row), a wrong kv head or a
+    wrong cross cache moves the logits by their own size."""
+    f32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    rel, agree, model, params = compare_paths(
+        f32, dev, prompt, max_len, tol=ENCDEC_VLM_F32_REL_L2, batch=batch,
+        steps=COMPARE_STEPS)
+    out = {"float32": dict(rel_l2=rel, argmax_agree=agree)}
+    del model, params
+    torch.cuda.empty_cache()
+    out["bfloat16"], model, params = compare_dense(
+        cfg, dev, prompt, max_len, batch=batch, steps=COMPARE_STEPS)
+    return out, model, params
+
+
+def serve_encdec_vlm(rec: Record, dev, gen, arch: str) -> dict:
+    """whisper-base or paligemma-3b at full width and depth with its
+    traffic (``ENCDEC_VLM``): its kernels at the served shapes (the layer
+    report's GEMMs; whisper's non-causal encoder and cross attention
+    forward, its causal decoder prompt, its decode against the self cache
+    and the full 1500-frame cross cache; paligemma's causal forward over
+    image prefix and prompt at head dim 256, group 8, and its decode),
+    bf16 on the main path and f32 beside it; then ``launch.serve`` with
+    every counter from 0 (``serve_counted``), the kernel path against the
+    plain path (``compare_encdec_vlm``), a profiled prefill and, for
+    whisper, 4 profiled decode steps."""
+    cfg = configs.get_config(arch)
+    batch, prompt, max_new, max_len, requests = ENCDEC_VLM[arch]
+    for g in lm_layer_gemms(cfg, batch):
+        check_gemm(rec, dev, gen, g.tokens, g.n, g.k, torch.bfloat16,
+                   f"{arch[:6]} decode {g.name.split('_', 3)[-1]}",
+                   main_path=True)
+    heads = dict(b=batch, hq=cfg.n_heads, hkv=cfg.n_kv_heads, d=cfg.hd)
+    faults = None
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+        if cfg.family == "audio":
+            se = cfg.enc_frames
+            check_attention(rec, dev, gen, s=se, causal=False, dtype=dtype,
+                            main_path=main, **heads)
+            check_attention(rec, dev, gen, s=se, sq=prompt, causal=False,
+                            dtype=dtype, main_path=main, **heads)
+            check_attention(rec, dev, gen, s=prompt, dtype=dtype,
+                            main_path=main, **heads)
+            check_decode(rec, dev, gen, s=se, lens=(se,) * batch,
+                         dtype=dtype, main_path=main, **heads)
+            if main:
+                faults = planted_faults(dev, gen, sk=se, sq=prompt, **heads)
+            lens = (1, prompt + 1, 64, 100, prompt + max_new, 300,
+                    max_len - 1, max_len)
+        else:
+            stream = cfg.vis_tokens + prompt
+            check_attention(rec, dev, gen, s=stream, dtype=dtype,
+                            main_path=main, **heads)
+            lens = (1, stream + 1, stream + 17, max_len)
+        check_decode(rec, dev, gen, s=max_len, lens=lens, dtype=dtype,
+                     main_path=main, **heads)
+    args = ["--arch", arch, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--max-new", str(max_new), "--requests",
+            str(requests), "--max-len", str(max_len), "--seed", "0",
+            "--device", "cuda", "--attn", "kernel"]
+    launches, stats, expected = serve_counted(cfg, args)
+    compared, model, params = compare_encdec_vlm(cfg, dev, batch, prompt,
+                                                 max_len)
+    prof = profile_prefill(model, params, prompt, max_len, batch)
+    prof_decode = profile_decode(model, params, prompt=prompt,
+                                 max_len=max_len, batch=batch) \
+        if cfg.family == "audio" else None
+    del model, params
+    torch.cuda.empty_cache()
+    return dict(n_layers=cfg.n_layers, tok_per_s=stats["tok_per_s"],
+                new_tokens=stats["new_tokens"], seconds=stats["seconds"],
+                batch_seconds=stats["batch_seconds"], launches=launches,
+                required=expected, compare=compared, profile_prefill=prof,
+                profile_decode=prof_decode, planted_faults=faults)
 
 
 def main() -> None:
@@ -1679,10 +1923,29 @@ def main() -> None:
         print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
               f"{moes[arch]['tok_per_s']:.1f} tok/s", flush=True)
 
+    # phase 11: whisper-base, then paligemma-3b, at full width and depth
+    encdec_vlm = {}
+    for arch in ENCDEC_VLM:
+        encdec_vlm[arch] = serve_encdec_vlm(rec, dev, gen, arch)
+        print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
+              f"{encdec_vlm[arch]['tok_per_s']:.1f} tok/s", flush=True)
+    print(f"[profile] device_ms windows over the run: "
+          f"{DEVICE_WINDOWS['taken']}, of which {DEVICE_WINDOWS['late']} "
+          f"taken again as the host fell behind; spin at the end "
+          f"{DEVICE_WINDOWS['spin_cycles']} cycles; torch.profiler windows: "
+          f"{PROFILER_WINDOWS['taken']}, of which "
+          f"{len(PROFILER_WINDOWS['lost'])} lost a marker; pause at the end "
+          f"{PROFILER_WINDOWS['pause_s']} s", flush=True)
+    for w in PROFILER_WINDOWS["lost"]:
+        print(f"[profile]   lost the {w['marker']} marker of {w['label']} "
+              f"after a pause of {w['pause_s']} s, {w['age_s']} s into the "
+              f"process", flush=True)
+
     # the kernels line, launches summed over every main path
     paths = [serve_launches, train_launches] + [
         r["launches"] for r in (*ssm.values(), *ssm_train.values(),
-                                *dense.values(), *moes.values())]
+                                *dense.values(), *moes.values(),
+                                *encdec_vlm.values())]
     launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     kernels = []
     for name, meta in KERNELS.items():
@@ -1724,7 +1987,9 @@ def main() -> None:
             resumed_steps=resumed["report"].steps_run, gates=gates,
             profile=train_prof),
         ssd=ssd, ssm=ssm, ssm_train=ssm_train, dense=dense, moe=moes,
-        launches=launches,
+        encdec_vlm=encdec_vlm, launches=launches,
+        device_windows=dict(DEVICE_WINDOWS),
+        profiler_windows=dict(PROFILER_WINDOWS),
         cases=rec.cases)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

@@ -9,7 +9,12 @@ sends attention and the SSD through the Hopper kernels, ``--attn plain``
 through plain PyTorch; ``--n-layers`` keeps the arch's width and cuts its
 depth, for a model whose weights pass one card (command-r-plus-104b's
 208 GB in bf16); an MoE arch keeps its leading dense layers, so N must
-exceed them.  Before serving, as the reference prints its
+exceed them.  whisper-base and paligemma-3b take their stub frontend's
+output beside each batch (``Model.extra_inputs``), drawn from the prompts'
+numpy rng as the reference draws it; paligemma's cache must hold its image
+prefix, prompt and new tokens (``--max-len`` at least ``vis_tokens +
+prompt_len + max_new``), or serving refuses to start where the reference
+would roll the cache silently.  Before serving, as the reference prints its
 per-layer cycle report, this prints ``launch.layers.layer_report``: the
 model's block GEMMs at the decode batch through the Covenant-tiled GEMM
 kernel, timed on the device.
@@ -33,13 +38,17 @@ EOS = 1
 
 
 def serve(model: Model, params: dict, prompts: list, *, batch: int,
-          max_new: int, max_len: int,
-          batch_seconds: list | None = None) -> tuple[list[np.ndarray], int]:
+          max_new: int, max_len: int, batch_seconds: list | None = None,
+          rng: np.random.Generator | None = None
+          ) -> tuple[list[np.ndarray], int]:
     """Serve ``prompts`` (equal-length token arrays) greedily, ``batch`` at
     a time, popping from the end of the queue as the reference does.
     Returns the tokens each batch produced ((bs, steps) arrays: the prefill
     token, then one per decode step) and the count of new tokens; appends
-    each batch's wall seconds to ``batch_seconds`` when given."""
+    each batch's wall seconds to ``batch_seconds`` when given.  A model
+    with ``extra_inputs`` draws them for each batch from ``rng``
+    (``extra_inputs`` below), as the reference does from its prompts'
+    rng."""
     queue = list(prompts)
     outputs = []
     total_tokens = 0
@@ -49,8 +58,10 @@ def serve(model: Model, params: dict, prompts: list, *, batch: int,
         bs = len(batch_prompts)
         toks = torch.as_tensor(np.stack(batch_prompts), dtype=torch.long,
                                device=model.device)
+        inputs = {"tokens": toks,
+                  **extra_inputs(model, bs, toks.shape[1], rng)}
         cache = model.init_cache(bs, max_len)
-        logits, cache = model.prefill(params, {"tokens": toks}, cache)
+        logits, cache = model.prefill(params, inputs, cache)
         tok = logits.argmax(-1)
         steps = [tok]
         done = np.zeros(bs, bool)
@@ -66,6 +77,16 @@ def serve(model: Model, params: dict, prompts: list, *, batch: int,
         if batch_seconds is not None:
             batch_seconds.append(time.perf_counter() - t0)
     return outputs, total_tokens
+
+
+def extra_inputs(model: Model, bs: int, seq: int,
+                 rng: np.random.Generator | None) -> dict:
+    """The stub frontend's inputs of one batch (``Model.extra_inputs``,
+    empty for most families): standard normal draws from ``rng``, cast to
+    each spec's dtype on the model's device."""
+    return {name: torch.as_tensor(rng.standard_normal(shape_fn(bs, seq)),
+                                  dtype=dtype, device=model.device)
+            for name, (shape_fn, dtype) in model.extra_inputs.items()}
 
 
 def kernel_launches() -> dict[str, int]:
@@ -97,6 +118,11 @@ def main(argv: list[str] | None = None) -> dict:
             ap.error(f"--n-layers must exceed {cfg.name}'s "
                      f"{cfg.first_dense} leading dense layers")
         cfg = cfg.replace(n_layers=args.n_layers)
+    stream = cfg.vis_tokens + args.prompt_len + args.max_new
+    if cfg.family == "vlm" and args.max_len < stream:
+        ap.error(f"{cfg.name} needs --max-len {stream} or more (image "
+                 f"prefix {cfg.vis_tokens} + prompt {args.prompt_len} + "
+                 f"new tokens {args.max_new}); got {args.max_len}")
     before = kernel_launches()
     print(layer_report(cfg, tokens=args.batch, device=args.device,
                        seed=args.seed))
@@ -109,7 +135,7 @@ def main(argv: list[str] | None = None) -> dict:
     t0 = time.perf_counter()
     outputs, total_tokens = serve(model, params, prompts, batch=args.batch,
                                   max_new=args.max_new, max_len=args.max_len,
-                                  batch_seconds=per_batch)
+                                  batch_seconds=per_batch, rng=rng)
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0

@@ -7,16 +7,20 @@
 * ``init_cache(batch, max_len)``            -> serving cache
 * ``prefill(params, batch, cache)``         -> (last logits (B,V), cache)
 * ``decode_step(params, tokens, cache)``    -> (logits (B,V), cache)
+* ``extra_inputs``                          -> stub-frontend input specs
 
-It holds the ``dense`` family (qwen3, stablelm, gemma3, command-r), the
-``moe`` one (deepseek-moe, olmoe), the ``ssm`` one (mamba2) and the
-``hybrid`` one (zamba2); ``get_model`` raises for ``audio`` and ``vlm``,
-and ``extra_inputs`` comes with the encoder-decoder and VLM families.
-Everything runs on ``device`` (``cuda`` unless the caller asks for
-``cpu``); ``loss_fn`` takes a batch of numpy arrays or tensors and moves it
-there.  ``attn`` picks the path of every kernel of the model: the kernel
-path (``"kernel"``) or plain PyTorch (``"plain"``), for attention
-(``models.attention``) and the SSD (``models.ssm.ssd``) alike.
+It holds every family of the reference: ``dense`` (qwen3, stablelm,
+gemma3, command-r), ``moe`` (deepseek-moe, olmoe), ``ssm`` (mamba2),
+``hybrid`` (zamba2), ``audio`` (whisper) and ``vlm`` (paligemma).  The
+last two take a stub frontend's output beside the tokens, as the
+reference's do: ``extra_inputs`` names it, ``name -> (shape_fn(batch,
+seq), dtype)`` (whisper's ``frames``, paligemma's ``patches``), and
+``prefill`` reads it from the batch.  Everything runs on ``device``
+(``cuda`` unless the caller asks for ``cpu``); ``loss_fn`` takes a batch
+of numpy arrays or tensors and moves it there.  ``attn`` picks the path of
+every kernel of the model: the kernel path (``"kernel"``) or plain
+PyTorch (``"plain"``), for attention (``models.attention``) and the SSD
+(``models.ssm.ssd``) alike.
 """
 from __future__ import annotations
 
@@ -25,8 +29,8 @@ from typing import Any, Callable
 
 import torch
 
-from . import (attention, common, config, mamba, moe, ssm, transformer,
-               zamba)
+from . import (attention, common, config, mamba, moe, paligemma, ssm,
+               transformer, whisper, zamba)
 from .config import ArchConfig
 
 
@@ -39,6 +43,8 @@ class Model:
     init_cache: Callable[[int, int], dict]
     prefill: Callable[[dict, dict, dict], tuple]
     decode_step: Callable[[dict, Any, dict], tuple]
+    # stub-frontend extra batch inputs: name -> (shape_fn(batch, seq), dtype)
+    extra_inputs: dict
 
 
 def get_model(cfg: ArchConfig, *, device: str | torch.device = "cuda",
@@ -60,21 +66,39 @@ def get_model(cfg: ArchConfig, *, device: str | torch.device = "cuda",
 
     # mamba2's decode is plain torch on both paths: it takes no ``attn``
     decode_kw = {} if mod is mamba else {"attn": attn}
+    extra_inputs = _extra_inputs(cfg)
     return Model(
         cfg,
         device,
         init_params=init_params,
         loss_fn=lambda p, b: mod.loss_fn(cfg, p, on_device(b), attn=attn),
         init_cache=lambda bs, ml: mod.init_cache(cfg, bs, ml, device=device),
-        prefill=lambda p, b, c: mod.prefill(cfg, p, b["tokens"], c,
-                                            attn=attn),
+        prefill=lambda p, b, c: mod.prefill(
+            cfg, p, b["tokens"], c, *(b[n] for n in extra_inputs),
+            attn=attn),
         decode_step=lambda p, t, c: mod.decode_step(cfg, p, t, c,
                                                     **decode_kw),
+        extra_inputs=extra_inputs,
     )
 
 
+def _extra_inputs(cfg: ArchConfig) -> dict:
+    """The reference's stub-frontend specs: in bf16 when the model
+    computes in bf16, else f32."""
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
+    if cfg.family == "vlm":
+        return {"patches": (
+            lambda bs, seq: (bs, cfg.vis_tokens, cfg.vis_dim), dtype)}
+    if cfg.family == "audio":
+        return {"frames": (
+            lambda bs, seq: (bs, cfg.enc_frames, cfg.d_model), dtype)}
+    return {}
+
+
 _FAMILIES = {"dense": transformer, "moe": moe, "ssm": mamba,
-             "hybrid": zamba}
+             "hybrid": zamba, "audio": whisper, "vlm": paligemma}
 
 __all__ = ["ArchConfig", "Model", "attention", "common", "config",
-           "get_model", "mamba", "moe", "ssm", "transformer", "zamba"]
+           "get_model", "mamba", "moe", "paligemma", "ssm", "transformer",
+           "whisper", "zamba"]

@@ -10,7 +10,7 @@ The counterpart of ``repro/models/attention.py``:
 The reference's docstring says the models dispatch to the Pallas kernels
 on a TPU, but its model code never calls them, in serving or in training.
 The port does what that docstring describes: ``prefill_attention`` (the
-full-sequence attention of training and prefill) and
+full-sequence attention of training and prefill, causal or not) and
 ``decode_attention_for`` send the models through
 ``repro_torch.kernels.ops`` when ``attn="kernel"`` and through the plain
 functions here when ``attn="plain"``.  Both compute the same function.  In
@@ -84,15 +84,17 @@ def _check_impl(attn: str) -> None:
         raise ValueError(f"attn must be one of {ATTN_IMPLS}, got {attn!r}")
 
 
-def prefill_attention(q, k, v, *, window: int = 0,
+def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       attn: str = "kernel") -> torch.Tensor:
-    """Causal self attention over a whole sequence (training forward or
-    prompt); q (B,Hq,S,D), k/v (B,Hkv,S,D).  ``window`` is the model's
-    (0 = none).  Gradients flow through either path."""
+    """Attention over a whole sequence (training forward or prompt); q
+    (B,Hq,Sq,D), k/v (B,Hkv,Sk,D).  Causal self attention (Sq = Sk) by
+    default; ``causal=False`` is bidirectional, and then Sq may differ
+    from Sk (whisper's encoder and its cross attention).  ``window`` is
+    the model's (0 = none).  Gradients flow through either path."""
     _check_impl(attn)
     if attn == "plain":
-        return dense_attention(q, k, v, causal=True, window=window)
-    return ops.covenant_attention(q, k, v, causal=True,
+        return dense_attention(q, k, v, causal=causal, window=window)
+    return ops.covenant_attention(q, k, v, causal=causal,
                                   window=window or None)
 
 

@@ -1,13 +1,14 @@
 """Dense decoder-only transformer LM.
 
 The counterpart of ``repro/models/transformer.py`` for the dense path
-(qwen3: qk-norm, GQA, tied embeddings): training (``forward``,
+(qwen3: qk-norm, GQA, tied embeddings), also PaliGemma's text decoder
+(``embeds`` in place of the token embedding): training (``forward``,
 ``loss_fn``) and serving (``prefill``, ``decode_step``).  The reference
 stacks each layer's parameters by group and scans over groups; here
 ``params["layers"]`` is a list with one dict per layer and the scan is a
-Python loop.  The KV cache
-is a list with one ``{"k", "v"}`` pair of (B, Hkv, S, D) tensors per layer,
-updated in place by ``prefill`` and ``decode_step``.
+Python loop.  The KV cache is a list with one ``{"k", "v"}`` pair of
+(B, Hkv, S, D) tensors per layer, updated in place by ``prefill`` and
+``decode_step``.
 
 ``attn`` picks the attention path: ``"kernel"`` sends prefill, training and
 decode attention through ``repro_torch.kernels.ops`` (the Hopper kernels
@@ -107,16 +108,19 @@ def _qkv(cfg: ArchConfig, p: dict, x: torch.Tensor):
 
 
 def _self_attention(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
-                    local: bool, rope: tuple | None, attn: str):
+                    local: bool, rope: tuple | None, attn: str,
+                    causal: bool = True):
     """(attention output before ``wo``, k, v) over the whole sequence;
-    ``rope`` is the (sin, cos) of the positions, None without RoPE."""
+    ``rope`` is the (sin, cos) of the positions, None without RoPE;
+    ``causal=False`` for an encoder's bidirectional attention."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x)
     if rope is not None:
         q = apply_rope(q, *rope)
         k = apply_rope(k, *rope)
     window = cfg.window if local else 0
-    o = attn_lib.prefill_attention(q, k, v, window=window, attn=attn)
+    o = attn_lib.prefill_attention(q, k, v, causal=causal, window=window,
+                                   attn=attn)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     return o, k, v
 
@@ -151,13 +155,24 @@ def layer_apply(cfg: ArchConfig, p: dict, x: torch.Tensor, *, local: bool,
 # ---------------------------------------------------------------------------
 
 
+def _embed(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
+           embeds: torch.Tensor | None) -> torch.Tensor:
+    """``embeds`` when given (PaliGemma's image prefix and text), else the
+    token embedding."""
+    return embeds if embeds is not None else \
+        embed_tokens(cfg, params["embed"], tokens)
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-            attn: str = "kernel") -> torch.Tensor:
-    """Returns final hidden states (B,S,D).  With ``cfg.remat`` and grad
-    mode on, each layer runs under ``torch.utils.checkpoint``
-    (non-reentrant): the backward recomputes its activations, as the
-    reference's ``jax.checkpoint`` does per layer group."""
-    x = embed_tokens(cfg, params["embed"], tokens)
+            attn: str = "kernel", embeds: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """Returns final hidden states (B,S,D).  ``embeds`` (B,S,D) overrides
+    the token embedding, positions running over the whole stream.  With
+    ``cfg.remat`` and grad mode on, each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes its
+    activations, as the reference's ``jax.checkpoint`` does per layer
+    group."""
+    x = _embed(cfg, params, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp, local in zip(params["layers"], layer_is_local(cfg)):
@@ -170,8 +185,10 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict,
             attn: str = "kernel") -> torch.Tensor:
     """Mean next-token cross entropy of ``batch`` (tokens, targets and
-    optional weights, (B,S) tensors)."""
-    h = forward(cfg, params, batch["tokens"], attn=attn)
+    optional weights, (B,S) tensors; optional ``embeds``, as ``forward``
+    takes them)."""
+    h = forward(cfg, params, batch["tokens"], attn=attn,
+                embeds=batch.get("embeds"))
     logits = logits_from_hidden(cfg, params["embed"], h)
     return cross_entropy(logits, batch["targets"], batch.get("weights"))
 
@@ -232,19 +249,23 @@ def _serve_layers(cfg: ArchConfig, params: dict) -> list[tuple]:
 
 
 def prefill(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
-            cache: dict, attn: str = "kernel") -> tuple[torch.Tensor, dict]:
+            cache: dict, attn: str = "kernel",
+            embeds: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """Process the prompt; returns (last-token logits (B,V), the cache),
-    whose k/v tensors are filled in place."""
+    whose k/v tensors are filled in place.  ``embeds`` as in ``forward``:
+    the cache then holds its whole stream."""
     return _prefill(cfg, params, _serve_layers(cfg, params), tokens, cache,
-                    attn)
+                    attn, embeds)
 
 
 def _prefill(cfg: ArchConfig, params: dict, layers: list[tuple],
-             tokens: torch.Tensor, cache: dict, attn: str
+             tokens: torch.Tensor, cache: dict, attn: str,
+             embeds: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, dict]:
     """``prefill`` over ``layers`` as ``_serve_layers`` gives them, one
-    cache entry each; the MoE family passes its own."""
-    x = embed_tokens(cfg, params["embed"], tokens)
+    cache entry each; the MoE family and whisper's decoder pass their
+    own."""
+    x = _embed(cfg, params, tokens, embeds)
     s = x.shape[1]
     rope = _rope(cfg, torch.arange(s, device=x.device))
     for (lp, local, step), kv in zip(layers, cache["layers"]):

@@ -1098,3 +1098,199 @@ def test_moe_decode_step_has_no_host_sync_on_card(cuda, arch):
     torch.cuda.synchronize()
     assert logits.shape == (4, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and VLM families: whisper-base's non-causal forward
+# over 1500 frames and its decode against the full cross cache, and
+# paligemma-3b's forward at head dim 256 with one kv head (group 8)
+# ---------------------------------------------------------------------------
+
+# (Sq, Sk): whisper's encoder (1500 frames, no multiple of 64), its cross
+# attention (a 4-token prompt against the frames) and a longer prompt
+NONCAUSAL_CASES = [(1500, 1500), (4, 1500), (70, 1500)]
+# relative L2 bounds of the forward and the decode against the oracle,
+# beside the absolute ones, which at 1500 keys sit near half a typical
+# output: bf16, two roundings (P before P @ V, and the output) of at most
+# 2^-8 each; f32, sums over the keys in another order (chip_smoke.py's
+# ATTN_REL_L2)
+REL_L2 = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
+
+
+def assert_rel_l2(got, want, dtype):
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel <= REL_L2[dtype], rel
+    return rel
+
+
+@pytest.mark.parametrize("sq,sk", NONCAUSAL_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_noncausal_whisper_shapes_on_card(cuda, sq, sk,
+                                                          dtype):
+    """``covenant_attention(causal=False)`` at whisper's head dim 64 with
+    the tiler's blocks: its ``q_offset = Sk - Sq`` masks nothing, the
+    ragged key edge at 1500 is masked by the kernel; bf16 2e-2, f32 2e-3,
+    and ``REL_L2``, bit-equal on two runs."""
+    q = randn(cuda, 2, 8, sq, 64, dtype=dtype)
+    k = randn(cuda, 2, 8, sk, 64, dtype=dtype)
+    v = randn(cuda, 2, 8, sk, 64, dtype=dtype)
+    before = flash_attention.launches
+    got = ops.covenant_attention(q, k, v, causal=False)
+    again = ops.covenant_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(got, again)
+    want = ops.attention_ref(q, k, v, causal=False)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert_rel_l2(got, want, dtype)
+
+
+@pytest.mark.parametrize("sq", [1500, 4, None])
+def test_bf16_gate_rejects_unmasked_key_edge_on_card(cuda, sq):
+    """The relative bound catches the fault the absolute one lets through
+    at whisper's 1500 keys: keys and values padded with zeros to 1536 and
+    left unmasked (as the forward reads its last block's tail if it drops
+    ``kpos < Sk``; ``sq`` None: the decode reading past ``kv_len``) take
+    about 1.4 % of every row's weight.  The faulty output stays inside
+    2e-2 of the oracle on the unpadded keys, and outside ``REL_L2``."""
+    from repro_torch.kernels.tiling import decode_block_kv
+
+    b, h, s, d, pad = 2, 8, 1500, 64, 36
+    k = randn(cuda, b, h, s, d, dtype=torch.bfloat16)
+    v = randn(cuda, b, h, s, d, dtype=torch.bfloat16)
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    if sq is None:
+        q = randn(cuda, b, h, d, dtype=torch.bfloat16)
+        full = torch.full((b,), s + pad, device=cuda, dtype=torch.int32)
+        got = ops.covenant_decode_attention(
+            q, kp, vp, full, block_kv=decode_block_kv(b * h, s + pad, d, 1))
+        want = ops.attention_ref(
+            q[:, :, None, :], k, v, causal=False,
+            kv_len=torch.full((b,), s, device=cuda))[:, :, 0, :]
+    else:
+        q = randn(cuda, b, h, sq, d, dtype=torch.bfloat16)
+        got = ops.covenant_attention(q, kp, vp, causal=False)
+        want = ops.attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    with pytest.raises(AssertionError):
+        assert_rel_l2(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("lens", [(1500, 1500, 1500, 1500),
+                                  (1, 1152, 1153, 1500)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_cross_cache_on_card(cuda, lens, dtype):
+    """The decode against whisper's 1500-frame cross cache (head dim 64,
+    group 1) at the tiler's split, whose last split is ragged: every row
+    full, as the model runs it, and ragged lengths at the split edge;
+    bf16 2e-2, f32 2e-3, and ``REL_L2``, bit-equal on two runs."""
+    from repro_torch.kernels.tiling import decode_block_kv
+
+    b, h, s, d = 4, 8, 1500, 64
+    q = randn(cuda, b, h, d, dtype=dtype)
+    k = randn(cuda, b, h, s, d, dtype=dtype)
+    v = randn(cuda, b, h, s, d, dtype=dtype)
+    kv_len = torch.tensor(lens, device=cuda, dtype=torch.int32)
+    bkv = decode_block_kv(b * h, s, d, 1)
+    assert s % bkv
+    got = ops.covenant_decode_attention(q, k, v, kv_len, block_kv=bkv)
+    again = ops.covenant_decode_attention(q, k, v, kv_len, block_kv=bkv)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ops.attention_ref(q[:, :, None, :], k, v, causal=False,
+                             kv_len=kv_len)[:, :, 0, :]
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert_rel_l2(got, want, dtype)
+
+
+@pytest.mark.parametrize("s", [288, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_d256_group8_on_card(cuda, s, dtype):
+    """paligemma's causal prefill: 8 q heads reading one kv head of 256,
+    over the 256-token image prefix and a 32-token prompt (and a ragged
+    100), with the tiler's blocks; bf16 2e-2, f32 2e-3, and ``REL_L2``,
+    bit-equal."""
+    q = randn(cuda, 2, 8, s, 256, dtype=dtype)
+    k = randn(cuda, 2, 1, s, 256, dtype=dtype)
+    v = randn(cuda, 2, 1, s, 256, dtype=dtype)
+    got = ops.covenant_attention(q, k, v, causal=True)
+    again = ops.covenant_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = ops.attention_ref(q, k, v, causal=True)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    assert_rel_l2(got, want, dtype)
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "paligemma-3b"])
+def test_encdec_vlm_smoke_kernel_path_on_card(cuda, arch):
+    """SMOKE whisper and paligemma (f32) on the card: the kernel path's
+    prefill and 8 decode steps against the plain path's, at the model
+    bound of ``tests/test_torch_encdec_vlm.py`` (atol 1e-4, rtol 1e-4);
+    flash attention launched once per attention of the prefill (whisper:
+    each encoder layer, each decoder layer's self and cross attention),
+    flash decode once per attention of each step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import extra_inputs
+    from repro_torch.models import get_model
+
+    cfg = get_config(arch, smoke=True)
+    per_batch, per_step = ((cfg.enc_layers + 2 * cfg.n_layers,
+                            2 * cfg.n_layers) if cfg.family == "audio"
+                           else (cfg.n_layers, cfg.n_layers))
+    prompt = rng.integers(2, cfg.vocab, (2, 7))
+    feed = torch.from_numpy(rng.integers(2, cfg.vocab, (8, 2))).to(cuda)
+    logits = {}
+    for attn in ("kernel", "plain"):
+        model = get_model(cfg, device=cuda, attn=attn)
+        params = model.init_params(0)
+        batch = {"tokens": torch.from_numpy(prompt).to(cuda),
+                 **extra_inputs(model, 2, 7, np.random.default_rng(1))}
+        fa, fd = flash_attention.launches, flash_decode.launches
+        out, cache = model.prefill(params, batch, model.init_cache(2, 48))
+        steps = [out]
+        for t in range(8):
+            out, cache = model.decode_step(params, feed[t], cache)
+            steps.append(out)
+        torch.cuda.synchronize()
+        kernel = attn == "kernel"
+        assert flash_attention.launches - fa == (per_batch if kernel else 0)
+        assert flash_decode.launches - fd == (8 * per_step if kernel else 0)
+        logits[attn] = steps
+    for a, b in zip(logits["kernel"], logits["plain"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_whisper_decode_step_has_no_host_sync_on_card(cuda):
+    """One whisper decode step at full width and 2 encoder and 2 decoder
+    layers, after a warm-up step, runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: the cross attention's
+    lengths are made on the card, and nothing on the step waits for it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import extra_inputs
+    from repro_torch.models import get_model
+
+    cfg = get_config("whisper-base").replace(n_layers=2, enc_layers=2)
+    model = get_model(cfg, device=cuda)
+    params = model.init_params(0)
+    tokens = torch.randint(2, cfg.vocab, (4, 4), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(0))
+    batch = {"tokens": tokens,
+             **extra_inputs(model, 4, 4, np.random.default_rng(0))}
+    logits, cache = model.prefill(params, batch, model.init_cache(4, 64))
+    logits, cache = model.decode_step(params, logits.argmax(-1), cache)
+    torch.cuda.synchronize()
+    nxt = logits.argmax(-1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = model.decode_step(params, nxt, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert logits.shape == (4, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())

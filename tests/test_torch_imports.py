@@ -44,7 +44,10 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "repro_torch.checkpoint.store", "repro_torch.launch.train",
                 "repro_torch.kernels.ssd_scan", "repro_torch.models.ssm",
                 "repro_torch.models.mamba", "repro_torch.models.zamba",
-                "repro_torch.models.moe",
+                "repro_torch.models.moe", "repro_torch.models.whisper",
+                "repro_torch.models.paligemma",
+                "repro_torch.configs.whisper_base",
+                "repro_torch.configs.paligemma_3b",
                 "repro_torch.launch.attn_probes",
                 "repro_torch.launch.ssd_probes"}
     assert expected <= set(res["modules"])
