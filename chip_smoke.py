@@ -15,8 +15,9 @@
    the card runs back to back while a spin kernel holds the stream
    (``device_ms``);
    the forward, the decode and the backward must give bit-equal results
-   on two runs, the forward and the decode also within a relative L2 of
-   their plain versions (``ATTN_REL_L2``);
+   on two runs, and every attention kernel (the forward with and without
+   the LSE, the decode, each of the backward's dq, dk and dv) must also
+   come within a relative L2 of its plain version (``ATTN_REL_L2``);
 3. serve: drives ``repro_torch.launch.serve``: the Covenant GEMM report of
    the model's block GEMMs, then full-width qwen3-0.6b with seeded random
    bf16 weights serving 8 requests (batch 4, prompt 512, 32 new tokens)
@@ -97,7 +98,25 @@
    against the plain path over the prefill and 8 decode steps, gated in
    f32 (1e-4) and in bf16 (beside the plain path's own one-ulp spread); a
    profiled prefill, and for whisper 4 profiled decode steps;
-12. prints the count of ``device_ms`` windows taken again as the host
+12. trains whisper-base, then paligemma-3b, at full width and depth, each
+   freed before the next loads: first the layer report's GEMMs at the
+   train tokens, and the LSE forward and the backward at their train
+   shapes in bf16 and f32 (whisper, batch 8: the non-causal encoder over
+   1500 frames, the 448-token decoder across them, its causal self
+   attention; paligemma, batch 4: causal at head dim 256, 8 q heads over
+   one kv head, 256 + 256 tokens; and gemma3-12b's D256 backward, window
+   1024 and none), each gated in relative L2 too, and whisper's ragged
+   key edge left unmasked through the LSE forward and the backward on
+   purpose, which the backward's relative gate must reject
+   (``planted_bwd_fault``); then one train step at full width and reduced
+   depth (whisper 2 + 2 layers, paligemma 2), kernel path against plain
+   path in f32 and bf16 (``compare_encdec_vlm_train_paths``); then
+   ``launch.train`` at full width and depth, 3 steps (whisper 8 x 448
+   tokens with (8, 1500, 512) frames, paligemma 4 x 256 with (4, 256,
+   1152) patches), no checkpoint, every counter from 0, the LSE forward
+   and the backward required exactly ``train_attention_launches`` times;
+   and one profiled train step each;
+13. prints the count of ``device_ms`` windows taken again as the host
    fell behind and of profiler windows that lost records, and what they
    left (``launch.layers.DEVICE_WINDOWS``, ``PROFILER_WINDOWS``), a
    ``kernels`` JSON line (six kernels, launches summed over every path)
@@ -182,7 +201,14 @@ ATTN_F32_ATOL = 2e-3      # tests/test_kernels.py f32 attention bound
 # about 1.4 % of a row's weight at 1500 keys (36 zero keys against 1500 of
 # mean weight e^0.5), and moves the output by that (``planted_faults``).
 # f32: the sums over up to 2080 keys in another order, about
-# sqrt(2080) * 2^-24 = 2.7e-6; 1e-4 leaves a factor 37
+# sqrt(2080) * 2^-24 = 2.7e-6; 1e-4 leaves a factor 37.  The backward's dq,
+# dk and dv take the same bounds: in bf16 the kernel (P and dS in three
+# bf16 parts, dV's sums compensated) and the plain version each round a
+# near-exact f32 sum once to bf16, so where they differ it is by one ulp,
+# at most 2^-7 of the value; in f32 they sum in another order, over up to
+# 8 x 512 rows (paligemma's dk), sqrt(4096) * 2^-24 = 3.8e-6.  The same
+# unmasked key edge moves dq, dk and dv by about 1.4 % too
+# (``planted_bwd_fault``)
 ATTN_REL_L2 = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}
 LSE_ATOL = 1e-3           # f32 log-sum-exp of the same inputs, values < 10
 LOGITS_REL_L2 = 5e-2      # see compare_paths
@@ -272,6 +298,20 @@ ENCDEC_VLM_F32_REL_L2 = 1e-4  # see compare_encdec_vlm
 ENCDEC_VLM = {"whisper-base": (8, 4, 128, 448, 16),
               "paligemma-3b": (4, 32, 32, 320, 8)}
 COMPARE_STEPS = 8            # decode steps of compare_encdec_vlm
+# phase 12, the encoder-decoder and VLM families trained at full width and
+# depth: (batch, decoder tokens, depth of the gate step).  whisper-base:
+# 8 30-second segments ((8, 1500, 512) frames) x 448 decoder tokens,
+# Whisper's whole decoder context, as fine-tuning feeds it; paligemma-3b:
+# 4 224-px images ((4, 256, 1152) patches) x 256 text tokens, captioning
+# and VQA fine-tuning (its 1.9 B parameters with AdamW's f32 moments take
+# about 30 GB); the gate step at 2 encoder and 2 decoder layers (whisper)
+# and 2 layers (paligemma)
+ENCDEC_VLM_TRAIN = {"whisper-base": (8, 448, 2), "paligemma-3b": (4, 256, 2)}
+ENCDEC_VLM_TRAIN_STEPS = 3
+# gemma3-12b's training attention (batch 4, 2048 tokens, 16 q / 8 kv heads
+# of 256, its local window and its global layers): the D256 backward's
+# second caller, held here though gemma3 is not trained yet
+GEMMA3_TRAIN = dict(b=4, hq=16, hkv=8, s=2048, d=256)
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -550,9 +590,12 @@ def planted_faults(dev, gen, b, hq, hkv, d, sk, sq) -> dict:
     return out
 
 
-def _train_qkv(dev, gen, b, hq, hkv, s, d, dtype):
-    shapes = ((b * hq, s, d), (b * hkv, s, d), (b * hkv, s, d),
-              (b * hq, s, d))
+def _train_qkv(dev, gen, b, hq, hkv, s, d, dtype, sq=None):
+    """q, k, v, dout of a training attention: ``sq`` query rows (``s``
+    unless given) against ``s`` keys."""
+    sq = s if sq is None else sq
+    shapes = ((b * hq, sq, d), (b * hkv, s, d), (b * hkv, s, d),
+              (b * hq, sq, d))
     return [torch.randn(sh, generator=gen, device=dev).to(dtype)
             for sh in shapes]
 
@@ -572,108 +615,188 @@ def _pairs(b, hq, s, causal, window, sq=None) -> float:
 
 
 def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
-                  window, main_path) -> None:
-    q, k, v, _ = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype)
+                  window, main_path, causal: bool = True,
+                  sq: int | None = None) -> None:
+    """The LSE forward (training's) against its plain version: causal with
+    the model's ``window`` or none, or with ``causal=False`` an encoder's or
+    a cross attention's, ``sq`` queries against ``s`` keys (q row 0 at kv
+    position s - sq, as ``FlashAttention`` hands it); device times and
+    aten's flash forward (which also returns the logsumexp, where it takes
+    the shape: no window) on the main path's shapes."""
+    sq = s if sq is None else sq
+    q, k, v, _ = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype, sq)
     pick = attention_mma_blocks if dtype == torch.bfloat16 \
         else attention_blocks
-    bq, bkv = pick(s, s, d, heads=b * hq)
+    bq, bkv = pick(sq, s, d, heads=b * hq)
+    if dtype != torch.bfloat16:
+        bq = min(bq, sq)
+    kw = dict(causal=causal, window=window)
     run = lambda: flash_attention_fwd_lse(  # noqa: E731
-        q, k, v, window=window, block_q=bq, block_kv=bkv)
+        q, k, v, block_q=bq, block_kv=bkv, **kw)
     out, lse = run()
-    want, want_lse = flash_attention_fwd_lse_plain(q, k, v, window=window)
+    want, want_lse = flash_attention_fwd_lse_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((out.float() - want.float()).abs().max())
+    rel = rel_l2(out, want)
     lse_err = float((lse - want_lse).abs().max())
     tol = ATTN_BF16_ATOL if dtype == torch.bfloat16 else ATTN_F32_ATOL
     del out, lse, want, want_lse
     same = bit_equal(run)
     ms = mean_ms(run, dev, 10)
-    dev_ms = device_ms(run)
+    dev_ms = device_ms(run) if main_path else None
     plain_ms = mean_ms(lambda: flash_attention_fwd_lse_plain(
-        q, k, v, window=window), dev, 10)
+        q, k, v, **kw), dev, 10)
     library_ms = library_dev_ms = None
     if dtype == torch.bfloat16 and not window:
         # aten's flash forward, which also returns the logsumexp; it takes
         # equal head counts, so k and v are repeated before the timing
-        q4 = q.reshape(b, hq, s, d)
+        q4 = q.reshape(b, hq, sq, d)
         k4 = k.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
         v4 = v.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
         lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
-            q4, k4, v4, 0.0, True)
+            q4, k4, v4, 0.0, causal)
         library_ms = mean_ms(lib, dev, 10)
-        library_dev_ms = device_ms(lib)
-    pairs = _pairs(b, hq, s, True, window)
-    nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * q.element_size() \
-        + b * hq * s * 4
+        library_dev_ms = device_ms(lib) if main_path else None
+    pairs = _pairs(b, hq, s, causal, window, sq)
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * s * d) * q.element_size() \
+        + b * hq * sq * 4
     peak = H100["peak_bf16_flops"] if dtype == torch.bfloat16 \
         else H100["peak_f32_flops"]
     b_ms, b_by = bound(4.0 * pairs * d, peak, nbytes)
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    seqs = f"S{s}" if sq == s else f"Sq{sq} Sk{s}"
+    mode = f"causal w{window or 0}" if causal else "noncausal"
     rec.add("flash_attention_fwd_lse",
-            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal w{window or 0} {dt} "
+            f"B{b} Hq{hq} Hkv{hkv} {seqs} D{d} {mode} {dt} "
             f"b{bq}x{bkv} (lse err {lse_err:.1e}) "
             f"{'bit-equal' if same else 'NOT bit-equal'}", err=err,
-            ok=err <= tol and lse_err <= LSE_ATOL and same, tol=tol, ms=ms,
+            ok=(err <= tol and rel <= ATTN_REL_L2[dtype]
+                and lse_err <= LSE_ATOL and same), tol=tol, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
-            library_device_ms=library_dev_ms)
+            library_device_ms=library_dev_ms, rel_l2=rel,
+            rel_tol=ATTN_REL_L2[dtype])
 
 
 def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
-              main_path) -> None:
-    q, k, v, do = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype)
+              main_path, causal: bool = True, sq: int | None = None) -> None:
+    """The backward against its plain version on the plain forward's
+    residuals, with the model's mask: causal with ``window`` or none, or
+    with ``causal=False`` an encoder's or a cross attention's, ``sq``
+    queries against ``s`` keys, ``q_offset = s - sq`` as ``FlashAttention``
+    hands it.  Gated at the attention atol and, on each of dq, dk and dv, at
+    ``ATTN_REL_L2`` (see ``planted_bwd_fault``); bit-equal on two runs;
+    device times and aten's flash backward (where it takes the shape: no
+    window) on the main path's shapes."""
+    sq = s if sq is None else sq
+    q, k, v, do = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype, sq)
     pick = attention_bwd_mma_blocks if dtype == torch.bfloat16 \
         else attention_bwd_blocks
-    bq, bkv = pick(s, s, d, heads=b * hq)
-    out, lse = flash_attention_fwd_lse_plain(q, k, v, window=window)
-    # the model's q_offset (Sk - Sq = 0 for self attention)
+    bq, bkv = pick(sq, s, d, heads=b * hq)
+    kw = dict(causal=causal, window=window, q_offset=s - sq)
+    out, lse = flash_attention_fwd_lse_plain(q, k, v, **kw)
     run = lambda: flash_attention_bwd(  # noqa: E731
-        q, k, v, out, lse, do, window=window, block_q=bq, block_kv=bkv)
+        q, k, v, out, lse, do, block_q=bq, block_kv=bkv, **kw)
     got = run()
-    want = flash_attention_bwd_plain(q, k, v, out, lse, do, window=window)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     err = max(float((a.float() - w.float()).abs().max())
               for a, w in zip(got, want))
+    rel = max(rel_l2(a, w) for a, w in zip(got, want))
     tol = ATTN_BF16_ATOL if dtype == torch.bfloat16 else ATTN_F32_ATOL
     del got, want
     same = bit_equal(run)
     ms = mean_ms(run, dev, 10)
-    dev_ms = device_ms(run)
+    dev_ms = device_ms(run) if main_path else None
     plain_ms = mean_ms(lambda: flash_attention_bwd_plain(
-        q, k, v, out, lse, do, window=window), dev, 5)
+        q, k, v, out, lse, do, **kw), dev, 5)
     library_ms = library_dev_ms = None
     if dtype == torch.bfloat16 and not window:
         # aten's flash backward on its own forward's residuals (k and v
         # repeated, so it returns per-q-head dk, dv without the group sum)
-        q4 = q.reshape(b, hq, s, d)
+        q4 = q.reshape(b, hq, sq, d)
         k4 = k.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
         v4 = v.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
-        do4 = do.reshape(b, hq, s, d)
+        do4 = do.reshape(b, hq, sq, d)
         fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-            q4, k4, v4, 0.0, True)
+            q4, k4, v4, 0.0, causal)
         o4, lse4, cq, ck, mq, mk, seed, offset = fwd[:8]
         aten_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
         lib = lambda: aten_bwd(  # noqa: E731
-            do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, True, seed,
+            do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, causal, seed,
             offset)
         library_ms = mean_ms(lib, dev, 10)
-        library_dev_ms = device_ms(lib)
-    pairs = _pairs(b, hq, s, True, window)
+        library_dev_ms = device_ms(lib) if main_path else None
+    pairs = _pairs(b, hq, s, causal, window, sq)
     # read q, k, v, out, dout and lse once, write dq, dk, dv once; five
     # products (S, dP, dq, dk, dv) of 2 * pairs * D operations each
-    nbytes = (4 * b * hq * s * d + 4 * b * hkv * s * d) * q.element_size() \
-        + b * hq * s * 4
+    nbytes = (4 * b * hq * sq * d + 4 * b * hkv * s * d) * q.element_size() \
+        + b * hq * sq * 4
     peak = H100["peak_bf16_flops"] if dtype == torch.bfloat16 \
         else H100["peak_f32_flops"]
     b_ms, b_by = bound(10.0 * pairs * d, peak, nbytes)
     dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    seqs = f"S{s}" if sq == s else f"Sq{sq} Sk{s}"
+    mode = f"causal w{window or 0}" if causal else "noncausal"
     rec.add("flash_attention_bwd",
-            f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} causal w{window or 0} {dt} "
+            f"B{b} Hq{hq} Hkv{hkv} {seqs} D{d} {mode} {dt} "
             f"b{bq}x{bkv} {'bit-equal' if same else 'NOT bit-equal'}",
-            err=err, ok=err <= tol and same, tol=tol, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            err=err, ok=err <= tol and rel <= ATTN_REL_L2[dtype] and same,
+            tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
-            library_device_ms=library_dev_ms)
+            library_device_ms=library_dev_ms, rel_l2=rel,
+            rel_tol=ATTN_REL_L2[dtype])
+
+
+def planted_bwd_fault(dev, gen, b, hq, hkv, d, sk, sq) -> dict:
+    """The backward's bf16 gates against ``planted_faults``' ragged-edge
+    fault, planted in a training attention: keys and values padded with
+    zeros to the next multiple of 64 and left unmasked through the LSE
+    forward and the backward, as the two kernels read their last block's
+    tail (loaded as zeros) if both drop their ``kpos < Sk`` term, for the
+    encoder (Sq = Sk) and the cross (``sq`` queries) shapes.  dq, and dk
+    and dv of the real keys, are held against the plain forward and
+    backward on the unpadded inputs.  (The backward alone reading the zero
+    tail changes nothing: a zero key adds nothing to dq, and its dk, dv
+    rows are not written.)  Raises unless ``ATTN_REL_L2`` rejects each;
+    returns the readings, beside whether ``ATTN_BF16_ATOL`` alone would
+    have."""
+    pad, dtype = -sk % 64, torch.bfloat16
+    tol, rel_tol = ATTN_BF16_ATOL, ATTN_REL_L2[dtype]
+    k = torch.randn((b * hkv, sk, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b * hkv, sk, d), generator=gen, device=dev).to(dtype)
+    kp, vp = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+    out = {}
+    for name, nq in (("backward encoder", sk), ("backward cross", sq)):
+        q = torch.randn((b * hq, nq, d), generator=gen, device=dev).to(dtype)
+        do = torch.randn((b * hq, nq, d), generator=gen,
+                         device=dev).to(dtype)
+        bq, bkv = attention_mma_blocks(nq, sk + pad, d, heads=b * hq)
+        o, lse = flash_attention_fwd_lse(q, kp, vp, causal=False, block_q=bq,
+                                         block_kv=bkv)
+        bq, bkv = attention_bwd_mma_blocks(nq, sk + pad, d, heads=b * hq)
+        dq, dk, dv = flash_attention_bwd(q, kp, vp, o, lse, do, causal=False,
+                                         block_q=bq, block_kv=bkv,
+                                         q_offset=sk + pad - nq)
+        got = (dq, dk[:, :sk], dv[:, :sk])
+        wo, wlse = flash_attention_fwd_lse_plain(q, k, v, causal=False)
+        want = flash_attention_bwd_plain(q, k, v, wo, wlse, do, causal=False,
+                                         q_offset=sk - nq)
+        err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(got, want))
+        rel = max(rel_l2(a, w) for a, w in zip(got, want))
+        out[name] = dict(max_abs_err=err, rel_l2=rel, atol_caught=err > tol,
+                         rel_caught=rel > rel_tol)
+        print(f"[fault] {name} B{b} Hq{hq} Hkv{hkv} Sq{nq} Sk{sk} D{d} bf16, "
+              f"keys padded with zeros to {sk + pad} and unmasked in the LSE "
+              f"forward and the backward: max_abs_err={err:.3e} (tol {tol}: "
+              f"{'caught' if err > tol else 'passes'}) rel_l2={rel:.3e} (tol "
+              f"{rel_tol:.3e}: {'caught' if rel > rel_tol else 'passes'})",
+              flush=True)
+        if rel <= rel_tol:
+            raise AssertionError(f"the bf16 backward gate passes a planted "
+                                 f"fault: {name} rel_l2 {rel} <= {rel_tol}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -930,20 +1053,33 @@ def compare_train_paths(cfg, dev) -> dict:
     return out
 
 
-def profile_train_step(cfg, dev) -> dict:
-    """One more train step of the main path's shape (kernel attention,
-    AdamW, 2 microbatches of MB x TRAIN_SEQ) under the profiler, after one
-    step outside it."""
+def profile_train_step(cfg, dev, batch: int = TRAIN_BATCH,
+                       seq: int = TRAIN_SEQ,
+                       microbatches: int = MICROBATCHES) -> dict:
+    """One more train step of a main path's shape (kernel attention,
+    AdamW with its moments in place as ``launch.train`` has them, the
+    model's stub-frontend extras; qwen3's default: 2 microbatches of MB x
+    TRAIN_SEQ) under the profiler, after one step outside it."""
     model = get_model(cfg, device=dev, attn="kernel")
     params = model.init_params(0)
-    opt = adamw(1e-3)
+    opt = adamw(1e-3, inplace=True)
     state = opt.init(params)
-    step = make_train_step(model.loss_fn, opt, microbatches=MICROBATCHES)
-    batch = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                        global_batch=TRAIN_BATCH, seed=0).batch(0)
-    params, state, _ = step(params, state, batch)
-    return _profile(lambda: float(step(params, state, batch)[2]["loss"]),
-                    "one train step")
+    step = make_train_step(model.loss_fn, opt, microbatches=microbatches)
+    data = _train_batch(model, batch, seq, 0)
+    params, state, _ = step(params, state, data)
+    prof = _profile(lambda: float(step(params, state, data)[2]["loss"]),
+                    f"one {cfg.name} train step")
+    del model, params, state
+    torch.cuda.empty_cache()
+    return prof
+
+
+def _train_batch(model, batch: int, seq: int, seed: int) -> dict:
+    """One ``SyntheticLM`` batch with the model's stub-frontend extras, as
+    ``launch.train`` draws it."""
+    return SyntheticLM(vocab=model.cfg.vocab, seq_len=seq,
+                       global_batch=batch, seed=seed,
+                       extras=model.extra_inputs).batch(0)
 
 
 def train_main_path() -> tuple[dict, dict, dict]:
@@ -1040,15 +1176,35 @@ def compare_ssm_train_paths(arch: str, dev) -> dict:
     never below 5e-2: a wrong SSD or attention gradient moves the gradient
     by its own size, far above.  The spread is printed beside it."""
     cfg = configs.get_config(arch).replace(n_layers=SSM_GATE_LAYERS[arch])
-    rng = np.random.default_rng(4)
+    need = ["ssd_chunk_scan"] + (["flash_attention_bwd"]
+                                 if cfg.family == "hybrid" else [])
+    return compare_train_step(f"ssm-train {arch}", cfg, dev, SSM_TRAIN_BATCH,
+                              SSM_TRAIN_SEQ, seed=4, moved=("layers", "ln"),
+                              need=need)
+
+
+def compare_train_step(tag: str, cfg, dev, batch_n: int, seq: int, *,
+                       seed: int, moved: tuple[str, str], need: list,
+                       front: set | None = None) -> dict:
+    """One train step of ``cfg`` on a ``batch_n`` x ``seq`` ``SyntheticLM``
+    batch (with the model's stub-frontend extras), kernel path against
+    plain path on the same weights and batch, in f32 and then in bf16.
+    f32: |dloss| / |loss| <= ``LOSS_REL_F32`` and gradient relative L2 <=
+    ``GRAD_REL_L2_F32``, the ``front`` leaves (top-level keys) together
+    too.  bf16: gradient relative L2 <= ``SSM_BF16_SPREAD`` times the
+    plain path's own spread (the plain path against itself with entry 0
+    of the norm scale ``moved`` = (stack, norm) of layer 0 moved one bf16
+    ulp), never below ``GRAD_REL_L2_BF16``.  The kernel path must launch
+    each kernel of ``need``.  The callers derive these bounds."""
+    stack, norm = moved
+    rng = np.random.default_rng(seed)
     out = {}
     for dt, loss_tol, grad_tol in (("float32", LOSS_REL_F32, GRAD_REL_L2_F32),
                                    ("bfloat16", None, GRAD_REL_L2_BF16)):
         c = cfg.replace(param_dtype=dt, compute_dtype=dt)
-        batch = SyntheticLM(vocab=c.vocab, seq_len=SSM_TRAIN_SEQ,
-                            global_batch=SSM_TRAIN_BATCH,
-                            seed=int(rng.integers(1 << 30))).batch(0)
-        params = get_model(c, device=dev).init_params(1)
+        model = get_model(c, device=dev)
+        batch = _train_batch(model, batch_n, seq, int(rng.integers(1 << 30)))
+        params = model.init_params(1)
         res = {}
         for fn in KERNEL_FNS:
             fn.launches = 0
@@ -1060,40 +1216,50 @@ def compare_ssm_train_paths(arch: str, dev) -> dict:
         (lk, gk), (lp, gp) = res["kernel"], res["plain"]
         loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
         rel, finite = _grad_rel_l2(gk, gp)
+        front_rel = None if front is None else _grad_rel_l2(
+            {k: gk[k] for k in front}, {k: gp[k] for k in front})[0]
         spread = None
         if dt == "bfloat16":
-            # the plain path against itself, one weight moved one bf16 ulp
-            lp0 = params["layers"][0]
-            moved = {**params, "layers": [
-                {**lp0, "ln": {"scale": lp0["ln"]["scale"].clone()}}]
-                + params["layers"][1:]}
-            moved["layers"][0]["ln"]["scale"][0] *= 1 + BF16_ULP
-            _, gm = make_loss_with_accum(model.loss_fn, 1)(moved, batch)
+            lp0 = params[stack][0]
+            moved_p = {**params, stack: [
+                {**lp0, norm: {**lp0[norm],
+                               "scale": lp0[norm]["scale"].clone()}}]
+                + params[stack][1:]}
+            moved_p[stack][0][norm]["scale"][0] *= 1 + BF16_ULP
+            _, gm = make_loss_with_accum(model.loss_fn, 1)(moved_p, batch)
             spread = _grad_rel_l2(gm, gp)[0]
             grad_tol = max(grad_tol, SSM_BF16_SPREAD * spread)
-            del moved, gm
-        print(f"[ssm-train {arch} {dt}] {c.n_layers} layers, "
-              f"{SSM_TRAIN_BATCH} x {SSM_TRAIN_SEQ}: loss kernel "
+            del moved_p, gm
+        front_tol = GRAD_REL_L2_F32 if dt == "float32" and front else None
+        depth = f"{c.n_layers} layers" + (
+            f" + {c.enc_layers} encoder" if c.family == "audio" else "")
+        front_txt = "" if front is None else (
+            f"; {'+'.join(sorted(front))} rel_l2 {front_rel:.3e} (tol "
+            f"{front_tol})")
+        print(f"[{tag} {dt}] {depth}, {batch_n} x {seq}: loss kernel "
               f"{float(lk):.6f} plain {float(lp):.6f} rel {loss_rel:.3e} "
               f"(tol {loss_tol}); gradient rel_l2 {rel:.3e} (tol "
-              f"{grad_tol:.3e}; plain path's own spread {spread}); finite "
-              f"{finite}; launches {launches}", flush=True)
+              f"{grad_tol:.3e}; plain path's own spread {spread})"
+              f"{front_txt}; finite {finite}; launches {launches}",
+              flush=True)
         if not finite or not np.isfinite(float(lk)):
-            raise AssertionError(f"{arch} {dt}: kernel path not finite")
+            raise AssertionError(f"{tag} {dt}: kernel path not finite")
         if loss_tol is not None and loss_rel > loss_tol:
-            raise AssertionError(f"{arch} {dt}: loss rel {loss_rel} > "
+            raise AssertionError(f"{tag} {dt}: loss rel {loss_rel} > "
                                  f"{loss_tol}")
         if rel > grad_tol:
-            raise AssertionError(f"{arch} {dt}: gradient rel_l2 {rel} > "
+            raise AssertionError(f"{tag} {dt}: gradient rel_l2 {rel} > "
                                  f"{grad_tol}")
-        need = ["ssd_chunk_scan"] + (["flash_attention_bwd"]
-                                     if cfg.family == "hybrid" else [])
+        if front_tol is not None and front_rel > front_tol:
+            raise AssertionError(f"{tag} {dt}: {sorted(front)} rel_l2 "
+                                 f"{front_rel} > {front_tol}")
         if any(launches[k] <= 0 for k in need):
-            raise AssertionError(f"{arch} {dt}: kernel path launched "
+            raise AssertionError(f"{tag} {dt}: kernel path launched "
                                  f"{launches}")
         out[dt] = dict(loss_kernel=float(lk), loss_plain=float(lp),
                        loss_rel=loss_rel, grad_rel_l2=rel, grad_tol=grad_tol,
-                       plain_spread=spread, launches=launches)
+                       frontend_rel_l2=front_rel, plain_spread=spread,
+                       launches=launches)
         del res, gk, gp, params, model
         torch.cuda.empty_cache()
     return out
@@ -1104,39 +1270,51 @@ def train_ssm_main_path(arch: str) -> dict:
     defaults (kernel path, bf16) for ``SSM_TRAIN_STEPS`` steps of
     ``SSM_TRAIN_BATCH`` x ``SSM_TRAIN_SEQ``, the counters from 0, and no
     checkpoint: one would take tens of GB at 2.7B parameters with AdamW's
-    f32 moments.  The SSD kernel must launch, and for zamba2 the flash
-    backward, and every loss must be finite."""
-    cfg = configs.get_config(arch)
+    f32 moments.  The SSD kernel must launch, and for zamba2 the LSE
+    forward and the flash backward, and every loss must be finite."""
+    required = {"matmul": None, "ssd_chunk_scan": None}
+    if configs.get_config(arch).family == "hybrid":
+        required.update(flash_attention_fwd_lse=None,
+                        flash_attention_bwd=None)
+    return train_full_depth(f"ssm-train {arch}", arch, SSM_TRAIN_BATCH,
+                            SSM_TRAIN_SEQ, SSM_TRAIN_STEPS, required)
+
+
+def train_full_depth(tag: str, arch: str, batch: int, seq: int, steps: int,
+                     required: dict) -> dict:
+    """``launch.train --arch arch`` at full width and depth with its
+    defaults (kernel path, bf16, the model's stub-frontend extras) for
+    ``steps`` steps of ``batch`` x ``seq``, every counter from 0, no
+    checkpoint.  Each kernel of ``required`` must launch exactly that many
+    times (None: at least once), and every loss must be finite."""
     for fn in KERNEL_FNS:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    stats = train.main(["--arch", arch, "--seq-len", str(SSM_TRAIN_SEQ),
-                        "--global-batch", str(SSM_TRAIN_BATCH), "--steps",
-                        str(SSM_TRAIN_STEPS), "--seed", "0", "--device",
-                        "cuda", "--ckpt-dir", str(CKPT_DIR),
-                        "--ckpt-every", "0"])
+    stats = train.main(["--arch", arch, "--seq-len", str(seq),
+                        "--global-batch", str(batch), "--steps", str(steps),
+                        "--seed", "0", "--device", "cuda", "--ckpt-dir",
+                        str(CKPT_DIR), "--ckpt-every", "0"])
     torch.cuda.synchronize()
     launches = train.kernel_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     rep = stats["report"]
-    print(f"[ssm-train] {arch}: {rep.steps_run} steps of {SSM_TRAIN_BATCH} x "
-          f"{SSM_TRAIN_SEQ} at full width and depth, losses "
-          f"{[round(x, 4) for x in rep.losses]}, "
+    print(f"[{tag}] {rep.steps_run} steps of {batch} x {seq} at full width "
+          f"and depth, losses {[round(x, 4) for x in rep.losses]}, step "
+          f"seconds {[round(x, 4) for x in rep.step_seconds]}, "
           f"{stats['ms_per_step']:.1f} ms per step after the first; "
-          f"launches {launches}; peak device memory {peak_gb:.1f} GiB",
-          flush=True)
-    need = ["matmul", "ssd_chunk_scan"] + (
-        ["flash_attention_fwd_lse", "flash_attention_bwd"]
-        if cfg.family == "hybrid" else [])
-    for name in need:
-        if launches[name] <= 0:
-            raise AssertionError(f"{arch} train never launched {name}")
-    if rep.steps_run != SSM_TRAIN_STEPS or not all(np.isfinite(rep.losses)):
-        raise AssertionError(f"{arch} train: {rep.steps_run} steps, losses "
+          f"launches {launches}, required {required} (None: at least "
+          f"one); peak device memory {peak_gb:.1f} GiB", flush=True)
+    for name, n in required.items():
+        if (launches[name] <= 0) if n is None else (launches[name] != n):
+            raise AssertionError(f"{tag}: {name} launched {launches[name]} "
+                                 f"times, required {n}")
+    if rep.steps_run != steps or not all(np.isfinite(rep.losses)):
+        raise AssertionError(f"{tag}: {rep.steps_run} steps, losses "
                              f"{rep.losses}")
-    return dict(ms_per_step=stats["ms_per_step"], losses=rep.losses,
+    return dict(ms_per_step=stats["ms_per_step"],
+                tokens_per_s=stats["tokens_per_s"], losses=rep.losses,
                 step_seconds=rep.step_seconds, launches=launches,
-                peak_gib=peak_gb)
+                required=required, peak_gib=peak_gb)
 
 
 # ---------------------------------------------------------------------------
@@ -1761,6 +1939,132 @@ def serve_encdec_vlm(rec: Record, dev, gen, arch: str) -> dict:
                 profile_decode=prof_decode, planted_faults=faults)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: whisper-base and paligemma-3b trained
+# ---------------------------------------------------------------------------
+
+
+def _frontend_leaves(cfg) -> set:
+    """The top-level keys of the leaves whose gradient reaches them only
+    through this family's new paths: whisper's encoder (through every
+    decoder layer's cross-attention k and v), paligemma's projector
+    (through the image prefix, which carries no targets)."""
+    return ({"pos_enc", "enc_layers", "enc_ln_f"} if cfg.family == "audio"
+            else {"projector"})
+
+
+def compare_encdec_vlm_train_paths(arch: str, dev) -> dict:
+    """One train step of whisper-base or paligemma-3b at full width and the
+    gate depth of ``ENCDEC_VLM_TRAIN``, at its full train batch (with the
+    stub frontend's extras), kernel path against plain path on the same
+    weights and batch, in f32 and then in bf16.  The kernel path runs
+    ``FlashAttention``: whisper's non-causal encoder attention over 1500
+    frames, its cross attention (Sq 448 against Sk 1500) and causal
+    decoder attention at D64; paligemma's causal D256 attention at group 8
+    over image prefix and text.
+
+    Bounds, derived as ``compare_train_paths``' before the first run.  In
+    f32 the two paths differ only by the order of f32 sums inside
+    attention (the kernels' online softmax and their dq, dk, dv walks
+    against einsum, softmax and autograd): about sqrt(1500) * 2^-24 =
+    2.3e-6 relative an attention output at 1500 keys, over 6 (whisper: 2
+    encoder layers, 2 decoder layers of two) or 2 attentions forward and
+    back a few 1e-6; |dloss| / |loss| <= 1e-4 and a gradient relative L2
+    <= 1e-3 leave two orders of headroom.  The whole gradient's norm is
+    mostly the tied embedding's, so the leaves the new paths alone reach
+    (``_frontend_leaves``: whisper's encoder, paligemma's projector) are
+    gated together at the same 1e-3 in f32: a wrong cross-attention dk or
+    dv, or a wrong gradient through the image prefix, moves them by their
+    own size.  In bf16 the paths round attention's inputs and outputs to
+    bf16 at different points, and these random-weight models amplify any
+    change, as ``compare_ssm_train_paths`` found for the SSM archs; so the
+    bf16 gradient is held, as there, to ``SSM_BF16_SPREAD`` times the
+    plain path's own spread (the plain path against itself with the first
+    layer's first norm scale entry moved one bf16 ulp), never below 5e-2,
+    and the loss and the frontend leaves are printed."""
+    batch_n, seq, depth = ENCDEC_VLM_TRAIN[arch]
+    cfg = configs.get_config(arch).replace(n_layers=depth)
+    if cfg.family == "audio":
+        cfg = cfg.replace(enc_layers=depth)
+    first = "enc_layers" if cfg.family == "audio" else "layers"
+    return compare_train_step(
+        f"encdec-vlm-train {arch}", cfg, dev, batch_n, seq, seed=5,
+        moved=(first, "ln1"), front=_frontend_leaves(cfg),
+        need=["flash_attention_fwd_lse", "flash_attention_bwd"])
+
+
+def train_attention_launches(cfg, steps: int, microbatches: int = 1
+                             ) -> dict:
+    """The flash launches ``launch.train`` makes on ``cfg``: each attention
+    of a microbatch's forward (whisper: one a layer of its encoder, two a
+    decoder layer, self and cross; paligemma: one a layer) runs the LSE
+    forward, remat (``cfg.remat``: every layer under
+    ``torch.utils.checkpoint``) runs each once more in the backward, and
+    the backward runs the flash backward once.  whisper-base: 6 + 2 x 6 =
+    18 attentions, 36 LSE forwards and 18 backwards a step; paligemma-3b:
+    18, 36 and 18."""
+    per = (cfg.enc_layers + 2 * cfg.n_layers if cfg.family == "audio"
+           else cfg.n_layers) * steps * microbatches
+    return {"flash_attention_fwd_lse": (2 if cfg.remat else 1) * per,
+            "flash_attention_bwd": per}
+
+
+def train_encdec_vlm_main_path(arch: str) -> dict:
+    """``train_full_depth`` of whisper-base or paligemma-3b for
+    ``ENCDEC_VLM_TRAIN_STEPS`` steps of its ``ENCDEC_VLM_TRAIN`` batch: the
+    LSE forward and the backward exactly ``train_attention_launches``
+    times, matmul at least once (the layer report), no other kernel."""
+    cfg = configs.get_config(arch)
+    batch_n, seq, _ = ENCDEC_VLM_TRAIN[arch]
+    required = {"matmul": None, "flash_attention": 0, "flash_decode": 0,
+                "ssd_chunk_scan": 0,
+                **train_attention_launches(cfg, ENCDEC_VLM_TRAIN_STEPS)}
+    return train_full_depth(f"encdec-vlm-train {arch}", arch, batch_n, seq,
+                            ENCDEC_VLM_TRAIN_STEPS, required)
+
+
+def train_encdec_vlm(rec: Record, dev, gen, arch: str) -> dict:
+    """whisper-base or paligemma-3b trained: its layer report's GEMMs at the
+    train tokens, its attention's LSE forward and backward at the train
+    shapes in bf16 (the main path) and f32 (whisper's non-causal encoder
+    over 1500 frames, its cross attention of 448 decoder tokens across
+    them and its causal decoder attention; paligemma's causal D256
+    attention at group 8 over 256 + 256 tokens, and gemma3-12b's D256
+    backward beside it), whisper's ragged key edge left unmasked through
+    both on purpose (``planted_bwd_fault``); then the gate step
+    (``compare_encdec_vlm_train_paths``), ``launch.train`` at full width
+    and depth (``train_encdec_vlm_main_path``) and one profiled step."""
+    cfg = configs.get_config(arch)
+    batch_n, seq, _ = ENCDEC_VLM_TRAIN[arch]
+    for g in lm_layer_gemms(cfg, batch_n * seq):
+        check_gemm(rec, dev, gen, g.tokens, g.n, g.k, torch.bfloat16,
+                   f"{arch[:6]} train {g.name.split('_', 3)[-1]}",
+                   main_path=True)
+    heads = dict(b=batch_n, hq=cfg.n_heads, hkv=cfg.n_kv_heads, d=cfg.hd)
+    if cfg.family == "audio":
+        se = cfg.enc_frames
+        shapes = [dict(s=se, causal=False), dict(s=se, sq=seq, causal=False),
+                  dict(s=seq)]
+    else:
+        shapes = [dict(s=cfg.vis_tokens + seq)]
+    for dtype in (torch.bfloat16, torch.float32):
+        main = dtype == torch.bfloat16
+        for shape in shapes:
+            for check in (check_fwd_lse, check_bwd):
+                check(rec, dev, gen, dtype=dtype, window=None,
+                      main_path=main, **heads, **shape)
+        if cfg.family == "vlm":
+            for window in (1024, None):
+                check_bwd(rec, dev, gen, dtype=dtype, window=window,
+                          main_path=False, **GEMMA3_TRAIN)
+    faults = planted_bwd_fault(dev, gen, sk=cfg.enc_frames, sq=seq,
+                               **heads) if cfg.family == "audio" else None
+    gates = compare_encdec_vlm_train_paths(arch, dev)
+    run = train_encdec_vlm_main_path(arch)
+    prof = profile_train_step(cfg, dev, batch_n, seq, 1)
+    return dict(gates=gates, planted_faults=faults, profile=prof, **run)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card; the port runs on the "
@@ -1929,6 +2233,15 @@ def main() -> None:
         encdec_vlm[arch] = serve_encdec_vlm(rec, dev, gen, arch)
         print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
               f"{encdec_vlm[arch]['tok_per_s']:.1f} tok/s", flush=True)
+
+    # phase 12: whisper-base, then paligemma-3b, trained at full width and
+    # depth
+    encdec_vlm_train = {}
+    for arch in ENCDEC_VLM_TRAIN:
+        encdec_vlm_train[arch] = train_encdec_vlm(rec, dev, gen, arch)
+        print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s: "
+              f"{encdec_vlm_train[arch]['ms_per_step']:.1f} ms a step",
+              flush=True)
     print(f"[profile] device_ms windows over the run: "
           f"{DEVICE_WINDOWS['taken']}, of which {DEVICE_WINDOWS['late']} "
           f"taken again as the host fell behind; spin at the end "
@@ -1945,7 +2258,8 @@ def main() -> None:
     paths = [serve_launches, train_launches] + [
         r["launches"] for r in (*ssm.values(), *ssm_train.values(),
                                 *dense.values(), *moes.values(),
-                                *encdec_vlm.values())]
+                                *encdec_vlm.values(),
+                                *encdec_vlm_train.values())]
     launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     kernels = []
     for name, meta in KERNELS.items():
@@ -1987,7 +2301,8 @@ def main() -> None:
             resumed_steps=resumed["report"].steps_run, gates=gates,
             profile=train_prof),
         ssd=ssd, ssm=ssm, ssm_train=ssm_train, dense=dense, moe=moes,
-        encdec_vlm=encdec_vlm, launches=launches,
+        encdec_vlm=encdec_vlm, encdec_vlm_train=encdec_vlm_train,
+        launches=launches,
         device_windows=dict(DEVICE_WINDOWS),
         profiler_windows=dict(PROFILER_WINDOWS),
         cases=rec.cases)

@@ -67,16 +67,27 @@
 //   64 round-to-nearest adds still moved a dv near 5 by two f32 ulps,
 //   which once put it on the other side of a bf16 rounding midpoint than
 //   the plain version's and float64's (chip_smoke.py's D64 case, 0.031).
-//   dk and dq seldom reach 4, and their passes add without it.
+//   The dK walk adds plainly.  At paligemma's group 8 (8 q heads over one
+//   kv head of 256) it adds 256 chunks and dk reaches 4 as often as dv,
+//   but plain adds put dk on the other side of a rounding midpoint about
+//   as often as the plain f32 version's own sums do (launch/attn_probes.py
+//   simulate: 0.006 and 0.005 expected a check), so the gate's residual
+//   risk is the plain version's either way; and on the H100 a compensated
+//   dK walk cost 13 % at D128 (qwen3's train shape, 0.332 -> 0.376 ms) and
+//   left the D256 dkv pass at 255 registers with 280 bytes spilled.  dq
+//   sums one head's kv walk and seldom reaches 4; its pass adds plainly.
 // Measured on the H100 (launch/attn_probes.py bwd): over seeded draws at
 // D128 and D64 no output of 2 or more rounds to another bf16 value than
 // float64 arithmetic gives.  Block sizes come from
-// tiling.attention_bwd_mma_blocks; head dims 16, 32, 64, 128 and 160 (zamba2's
-// shared block) and block_q, block_kv of 64 and 128 are built.  At D160 a
-// walk holds half the head dim's accumulator (kWalkCols: with dV's
-// compensation the whole one is 120 registers a thread, and ptxas spilled
-// 612 bytes), so each pass walks once per half and recomputes its S and dP;
-// a (64, 64) block's tiles take 130 KB, so one block holds an SM.
+// tiling.attention_bwd_mma_blocks; head dims 16, 32, 64, 128, 160 (zamba2's
+// shared block) and 256 (paligemma's, gemma3's) and block_q, block_kv of 64
+// and 128 are built, each pair whose tiles fit one block's shared memory
+// (bwd_mma_fits: at 160 all but (128, 128), at 256 only (64, 64)).  Above
+// D128 a walk holds half the head dim's accumulator (kWalkCols: at D160,
+// with dV's compensation, the whole one is 120 registers a thread, and
+// ptxas spilled 612 bytes; at D256 a walk's half is D128's whole), so each
+// pass walks once per half and recomputes its S and dP; a (64, 64) block's
+// tiles take 130 KB at D160 and 199 KB at D256, so one block holds an SM.
 //
 // f32 stays on the SIMT lanes (fa_bwd_dq_kernel, fa_bwd_dkv_kernel), in
 // IEEE f32 (no TF32): the f32 tiles in padded shared memory, every product
@@ -962,6 +973,18 @@ constexpr int dkv_mma_smem() {
   return (2 * BKV + 4 * BQ) * (D + kPad) * 2 + 16 * BQ;
 }
 
+// the dynamic shared memory one block may take on the H100 (227 KB)
+constexpr int kMaxSmemBlock = 232448;
+
+// a (BQ, BKV) pair is built at head dim D only where both passes' tiles
+// fit one block: an unfit pair compiles, but its launch would fail at
+// cudaFuncSetAttribute
+template <int D, int BQ, int BKV>
+constexpr bool bwd_mma_fits() {
+  return dq_mma_smem<D, BQ, BKV>() <= kMaxSmemBlock &&
+         dkv_mma_smem<D, BQ, BKV>() <= kMaxSmemBlock;
+}
+
 // both passes, dq (which writes delta) first, on one stream
 template <int D, int BQ, int BKV>
 int launch_bwd_mma(const void* q, const void* k, const void* v,
@@ -1003,9 +1026,10 @@ int launch_bwd_mma_blocks(const void* q, const void* k, const void* v,
                           int bkv_rows, int bq, int bkv,
                           const BwdMmaParams& p, cudaStream_t s) {
 #define BWD_MMA_CASE(BQ, BKV)                                                  \
-  if (bq == BQ && bkv == BKV)                                                  \
-    return launch_bwd_mma<D, BQ, BKV>(q, k, v, out, dout, lse, delta, dq, dk,  \
-                                      dv, bh, bkv_rows, p, s);
+  if constexpr (bwd_mma_fits<D, BQ, BKV>())                                    \
+    if (bq == BQ && bkv == BKV)                                                \
+      return launch_bwd_mma<D, BQ, BKV>(q, k, v, out, dout, lse, delta, dq,    \
+                                        dk, dv, bh, bkv_rows, p, s);
   BWD_MMA_CASE(64, 64)
   BWD_MMA_CASE(64, 128)
   BWD_MMA_CASE(128, 64)
@@ -1078,6 +1102,7 @@ extern "C" int covenant_flash_attention_bwd_mma(
   BWD_MMA_D(64)
   BWD_MMA_D(128)
   BWD_MMA_D(160)
+  BWD_MMA_D(256)
 #undef BWD_MMA_D
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -393,8 +393,9 @@ def _bwd_mma(q, k, v, out, lse, dout, *, causal, window, scale, block_q,
     pass) on checked, contiguous CUDA tensors.  It takes head dims
     ``FLASH_BWD_MMA_HEAD_DIMS`` and block_q, block_kv in
     ``FLASH_BWD_MMA_BLOCKS`` (``tiling.attention_bwd_mma_blocks``) whose
-    tiles fit one block's shared memory, and raises on others (at head dim
-    160, block (128, 128))."""
+    tiles fit one block's shared memory, the pairs the library builds, and
+    raises on others (at head dim 160 block (128, 128); at 256 every pair
+    but (64, 64))."""
     bh, sq, d = q.shape
     bkv_rows, sk, _ = k.shape
     if d not in FLASH_BWD_MMA_HEAD_DIMS or block_q not in FLASH_BWD_MMA_BLOCKS \

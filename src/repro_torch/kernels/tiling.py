@@ -337,9 +337,11 @@ def attention_bwd_blocks(seq_q: int, seq_k: int, head_dim: int,
 # the bf16 tensor-core flash backward (csrc/flash_attention_bwd.cu): warps
 # of 16 rows in both passes (q rows in the dq pass, kv rows in the dkv
 # pass), the head dims and blocks it is built for (the head dims the bf16
-# backward's tests and the train path use), and the columns of the walked
-# tile a warp holds in registers at once
-FLASH_BWD_MMA_HEAD_DIMS = (16, 32, 64, 128, 160)
+# backward's tests and the train paths use: 160 zamba2's shared block, 256
+# paligemma's and gemma3's; a block pair is built where its tiles fit one
+# block's shared memory, at 256 only (64, 64)), and the columns of the
+# walked tile a warp holds in registers at once
+FLASH_BWD_MMA_HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 FLASH_BWD_MMA_BLOCKS = (64, 128)
 FLASH_BWD_MMA_SLICE = 32
 # of the 255 registers a thread may hold, what the backward's fragments may
@@ -362,12 +364,21 @@ def flash_bwd_mma_smem_bytes(block_q: int, block_kv: int,
     return max(dq, dkv)
 
 
+def flash_bwd_walk_cols(head_dim: int) -> int:
+    """Accumulator columns one walk of a backward pass holds (``kWalkCols``
+    in csrc/flash_attention_bwd.cu): the whole head dim up to 128, half of
+    it above, where each pass walks once per half."""
+    return head_dim // 2 if head_dim > 128 else head_dim
+
+
 def flash_bwd_mma_regs(head_dim: int) -> int:
     """32-bit registers a thread holds in fragments, the larger pass: the
     dkv pass walks its q tiles once for dV and once for dK, so a warp
-    holds one f32 (16 x d) accumulator beside the f32 S^T and dP^T tiles
-    of one 32-column slice (16 x 32 each); the dq pass the same for dQ."""
-    return (16 * head_dim + 2 * 16 * FLASH_BWD_MMA_SLICE) // 32
+    holds one f32 (16 x walk columns) accumulator (``flash_bwd_walk_cols``)
+    beside the f32 S^T and dP^T tiles of one 32-column slice (16 x 32
+    each); the dq pass the same for dQ."""
+    return (16 * flash_bwd_walk_cols(head_dim)
+            + 2 * 16 * FLASH_BWD_MMA_SLICE) // 32
 
 
 def attention_bwd_mma_blocks(seq_q: int, seq_k: int, head_dim: int,
@@ -395,6 +406,10 @@ def attention_bwd_mma_blocks(seq_q: int, seq_k: int, head_dim: int,
             bq = lo
         else:
             break
+    if flash_bwd_mma_smem_bytes(bq, bkv, head_dim) > smem_b:
+        raise ValueError(f"the bf16 flash backward's ({bq}, {bkv}) tiles at "
+                         f"head dim {head_dim} exceed one block's shared "
+                         f"memory ({smem_b} bytes)")
     return bq, bkv
 
 
@@ -498,6 +513,7 @@ __all__ = ["DECODE_MIN_BLOCK_KV", "FLASH_BWD_MMA_BLOCKS", "FLASH_BWD_MMA_FRAG_RE
            "attention_bwd_blocks", "attention_bwd_mma_blocks",
            "attention_mma_blocks", "decode_block_kv",
            "flash_bwd_mma_regs", "flash_bwd_mma_smem_bytes",
+           "flash_bwd_walk_cols",
            "flash_bwd_smem_bytes", "flash_mma_built", "flash_mma_regs",
            "flash_mma_smem_bytes",
            "flash_smem_bytes", "gemm_blocks", "gemm_fits", "gemm_stage_bytes",

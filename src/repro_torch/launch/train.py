@@ -6,10 +6,11 @@ step with microbatch accumulation -> synthetic data -> fault-tolerant loop
 ``--device cuda`` unless asked otherwise; ``--attn kernel`` sends attention
 forward and backward through the Hopper kernels (``--attn plain``: plain
 PyTorch under autograd); every arch trains, the SSM archs through the SSD
-kernel's autograd Function, but whisper-base and paligemma-3b: their
-training is the port's next slice (ROADMAP.md section 1), and for them it
-refuses to start.  ``--smoke`` takes the reduced config, which runs on
-the CPU.  ``--ckpt-every 0`` writes no checkpoint.  AdamW updates
+kernel's autograd Function, whisper-base and paligemma-3b on the stub
+frontend's ``frames`` or ``patches``, which ``SyntheticLM`` draws beside
+each batch from the model's ``extra_inputs``, as the reference's
+``launch.train`` draws them.  ``--smoke`` takes the reduced config, which
+runs on the CPU.  ``--ckpt-every 0`` writes no checkpoint.  AdamW updates
 its moments in place (``adamw(..., inplace=True)``).  Before training it
 prints ``launch.layers.layer_report`` at ``global_batch x seq_len`` tokens
 (the model's block GEMMs through the Covenant-tiled GEMM kernel;
@@ -70,10 +71,6 @@ def main(argv: list[str] | None = None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = configs.get_config(args.arch, smoke=args.smoke)
-    if cfg.family in ("audio", "vlm"):
-        ap.error(f"{cfg.name}: training of the {cfg.family} family is not "
-                 "ported yet (ROADMAP.md section 1, the training slice of "
-                 "whisper-base and paligemma-3b); launch.serve serves it")
     tokens = args.global_batch * args.seq_len
     before = kernel_launches()
     if args.accel_target != "none":
@@ -95,7 +92,8 @@ def main(argv: list[str] | None = None) -> dict:
     step_fn = make_train_step(model.loss_fn, opt,
                               microbatches=args.microbatches)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,
-                       global_batch=args.global_batch, seed=args.seed)
+                       global_batch=args.global_batch, seed=args.seed,
+                       extras=model.extra_inputs)
 
     t0 = time.perf_counter()
     params, opt_state, report = train_loop(

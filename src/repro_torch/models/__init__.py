@@ -17,7 +17,8 @@ reference's do: ``extra_inputs`` names it, ``name -> (shape_fn(batch,
 seq), dtype)`` (whisper's ``frames``, paligemma's ``patches``), and
 ``prefill`` reads it from the batch.  Everything runs on ``device``
 (``cuda`` unless the caller asks for ``cpu``); ``loss_fn`` takes a batch
-of numpy arrays or tensors and moves it there.  ``attn`` picks the path of
+of numpy arrays or tensors and moves it there, the extras in their spec's
+dtype.  ``attn`` picks the path of
 every kernel of the model: the kernel path (``"kernel"``) or plain
 PyTorch (``"plain"``), for attention (``models.attention``) and the SSD
 (``models.ssm.ssd``) alike.
@@ -61,12 +62,17 @@ def get_model(cfg: ArchConfig, *, device: str | torch.device = "cuda",
         gen.manual_seed(seed)
         return mod.init_params(cfg, gen)
 
-    def on_device(batch: dict) -> dict:
-        return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
-
     # mamba2's decode is plain torch on both paths: it takes no ``attn``
     decode_kw = {} if mod is mamba else {"attn": attn}
     extra_inputs = _extra_inputs(cfg)
+
+    def on_device(batch: dict) -> dict:
+        """The batch on ``device``; the stub frontend's extras in their
+        spec's dtype (the data pipeline draws them in f32)."""
+        return {k: torch.as_tensor(v, device=device,
+                                   dtype=extra_inputs[k][1]
+                                   if k in extra_inputs else None)
+                for k, v in batch.items()}
     return Model(
         cfg,
         device,

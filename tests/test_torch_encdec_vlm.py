@@ -4,11 +4,16 @@ against the JAX package's, on the CPU.
 Parameters come from the reference's ``jax.random`` init, carried across
 with ``params_from_jax``; both packages get the same numpy inputs from a
 seed (tokens, and the stub frontend's ``frames`` or ``patches``), and
-their ``SyntheticLM`` draw the same batches with those extras.  SMOKE is f32, so the bound is f32's, as
-in ``tests/test_torch_dense_configs.py``: atol 1e-4, rtol 1e-4.  Both
-attention paths are held: on CPU tensors the kernel path runs the kernels'
-plain versions through the same dispatch (``ops.covenant_attention``,
-``ops.covenant_decode_attention``) that launches them on the card.
+their ``SyntheticLM`` draw the same batches with those extras.  SMOKE is
+f32, so the bound is f32's, as in ``tests/test_torch_dense_configs.py``:
+atol 1e-4, rtol 1e-4.  Both attention paths are held: on CPU tensors the
+kernel path runs the kernels' plain versions through the same dispatch
+(``ops.covenant_attention``, ``ops.covenant_decode_attention``) that
+launches them on the card, and its gradient through ``FlashAttention``.
+Training: the loss and every leaf's gradient against ``jax.grad`` of the
+reference's ``loss_fn`` (whisper's encoder leaves and paligemma's
+projector among them), one step in 2 microbatches against 1, and
+``launch.train --smoke --device cpu``.
 """
 import dataclasses
 
@@ -35,6 +40,7 @@ from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve
 from repro_torch.launch.train import main as train_main
 from repro_torch.models import attention, get_model, paligemma, whisper
+from repro_torch.runtime.trainstep import make_loss_with_accum
 from repro_torch.tree import tree_map, tree_paths
 
 ARCHS = ("whisper-base", "paligemma-3b")
@@ -154,9 +160,14 @@ def run(request):
             lambda p, t, pa: ref_paligemma.forward(rcfg, p, t, pa))(
                 jparams, j["tokens"], j["patches"]))
         extra = {"patches": j["patches"]}
-    r["loss"] = float(REF_MODULES[arch].loss_fn(
-        rcfg, jparams, {"tokens": j["tokens"], "targets": j["targets"],
-                        **extra}))
+    jbatch = {"tokens": j["tokens"], "targets": j["targets"], **extra}
+    r["loss"] = float(REF_MODULES[arch].loss_fn(rcfg, jparams, jbatch))
+    _, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: REF_MODULES[arch].loss_fn(rcfg, p, jbatch)))(jparams)
+    r["grads"] = {tuple(getattr(k, "key", getattr(k, "idx", None))
+                        for k in path): np.asarray(leaf)
+                  for path, leaf in
+                  jax.tree_util.tree_flatten_with_path(jgrads)[0]}
     cache = rmodel.init_cache(B, MAX_LEN)
     logits, cache = jax.jit(rmodel.prefill)(
         jparams, {"tokens": j["tokens"], **extra}, cache)
@@ -202,6 +213,67 @@ def test_loss_matches_reference(run, attn):
     batch = {k: v for k, v in x.items() if k != "feed"}
     got = float(model.loss_fn(run["params"], batch))
     np.testing.assert_allclose(got, run["loss"], **TOL)
+
+
+def _check_grads(cfg, grads, want: dict) -> None:
+    """Every leaf of the port's gradient, in the reference's layout,
+    against ``jax.grad``'s."""
+    got = dict(tree_paths(params_to_jax(cfg, grads)))
+    assert got.keys() == want.keys()
+    for path, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[path], **TOL,
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("attn", ["kernel", "plain"])
+def test_loss_and_grads_match_reference(run, attn):
+    """The train step's loss and every leaf's gradient (``jax.grad`` of the
+    reference's ``loss_fn``), under ``_layers``' remat.  whisper's encoder
+    leaves get theirs only through each decoder layer's cross-attention
+    k and v inside its checkpointed closure, and paligemma's projector
+    only through the image prefix, which carries no targets: each is held
+    explicitly, and must not be zero."""
+    cfg, x = run["cfg"], run["x"]
+    assert cfg.remat
+    model = get_model(cfg, device="cpu", attn=attn)
+    batch = {k: v for k, v in x.items() if k != "feed"}
+    loss, grads = make_loss_with_accum(model.loss_fn, 1)(run["params"],
+                                                         batch)
+    np.testing.assert_allclose(float(loss), run["loss"], **TOL)
+    _check_grads(cfg, grads, run["grads"])
+    if cfg.family == "audio":
+        held = [g for lp in grads["enc_layers"] for _, g in tree_paths(lp)]
+        held += [grads["pos_enc"], grads["enc_ln_f"]["scale"]]
+        assert len(held) > 2 + cfg.enc_layers
+    else:
+        held = [grads["projector"]]
+    assert all(bool(g.abs().sum() > 0) for g in held)
+
+
+@pytest.mark.parametrize("attn", ["kernel", "plain"])
+def test_two_microbatches_give_one_microbatch_step(run, attn):
+    """One step's loss and gradient in 2 microbatches equal those in 1:
+    the chunking splits every key of the batch, the stub frontend's
+    ``frames`` or ``patches`` with the tokens."""
+    cfg, x = run["cfg"], run["x"]
+    model = get_model(cfg, device="cpu", attn=attn)
+    batch = {k: v for k, v in x.items() if k != "feed"}
+    seen = []
+
+    def loss_fn(p, b):
+        seen.append({k: tuple(v.shape) for k, v in b.items()})
+        return model.loss_fn(p, b)
+
+    one = make_loss_with_accum(loss_fn, 1)(run["params"], batch)
+    two = make_loss_with_accum(loss_fn, 2)(run["params"], batch)
+    name = next(iter(model.extra_inputs))
+    assert [s[name][0] for s in seen] == [B, B // 2, B // 2]
+    assert all(s["tokens"][0] == s[name][0] for s in seen)
+    np.testing.assert_allclose(float(two[0]), float(one[0]), **TOL)
+    np.testing.assert_allclose(float(two[0]), run["loss"], **TOL)
+    for (path, a), (_, b) in zip(tree_paths(two[1]), tree_paths(one[1])):
+        np.testing.assert_allclose(a.numpy(), b.float().numpy(), **TOL,
+                                   err_msg=str(path))
 
 
 @pytest.mark.parametrize("attn", ["kernel", "plain"])
@@ -349,11 +421,42 @@ def test_serve_cli_refuses_a_cache_short_of_the_vlm_stream(capsys):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_train_cli_refuses_until_its_slice(arch, capsys):
-    """``launch.train`` stops before building anything, naming the
-    roadmap's item, rather than failing inside the model."""
-    with pytest.raises(SystemExit):
-        train_main(["--arch", arch, "--smoke", "--device", "cpu",
-                    "--steps", "1", "--ckpt-every", "0"])
-    err = capsys.readouterr().err
-    assert "ROADMAP.md section 1" in err and "not ported yet" in err
+def test_train_cli_on_cpu(arch, tmp_path, capsys, monkeypatch):
+    """``launch.train --smoke --device cpu`` trains the arch: finite
+    losses, no kernel launched (CPU tensors take the plain versions), and
+    each step's batch carries the stub frontend's output, drawn as the
+    reference's ``SyntheticLM`` draws it for the model's
+    ``extra_inputs``."""
+    from repro_torch.launch import train as train_mod
+
+    cfg = get_config(arch, smoke=True)
+    ref_extras = ref_get_model(ref_get_config(arch, smoke=True)).extra_inputs
+    want = RefSyntheticLM(cfg.vocab, 8, 2, seed=0, extras={
+        k: ((lambda b, s, fn=fn: fn(b, s)), dt)
+        for k, (fn, dt) in ref_extras.items()})
+    seen = []
+    real = train_mod.SyntheticLM
+
+    class Recording(real):
+        def batch(self, step):
+            out = super().batch(step)
+            seen.append((step, out))
+            return out
+
+    monkeypatch.setattr(train_mod, "SyntheticLM", Recording)
+    stats = train_main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--steps", "2", "--seq-len", "8", "--global-batch",
+                        "2", "--ckpt-dir", str(tmp_path), "--ckpt-every",
+                        "0", "--accel-target", "none"])
+    out = capsys.readouterr().out
+    assert "[train] done: 2 steps" in out and "kernel launches" in out
+    rep = stats["report"]
+    assert rep.steps_run == 2 and all(np.isfinite(rep.losses))
+    assert all(v == 0 for v in stats["launches"].values())
+    assert [s for s, _ in seen] == [0, 1]
+    for step, got in seen:
+        ref = want.batch(step)
+        assert got.keys() == ref.keys() == {"tokens", "targets", "weights",
+                                            *ref_extras}
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k])

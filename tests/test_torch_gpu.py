@@ -1294,3 +1294,187 @@ def test_whisper_decode_step_has_no_host_sync_on_card(cuda):
     torch.cuda.synchronize()
     assert logits.shape == (4, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# training the encoder-decoder and VLM families: the bf16 backward at head
+# dim 256 (paligemma's 8 q heads over one kv head, gemma3's 16 over 8) and
+# at whisper's non-causal shapes
+# ---------------------------------------------------------------------------
+
+
+def _bwd_case(dev, b, hq, hkv, sq, sk, d, dtype, causal=True, window=None):
+    """Inputs, the plain forward's residuals and the plain backward of an
+    attention with the model's mask (q row 0 at kv position Sk - Sq)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_lse_plain)
+
+    q = randn(dev, b * hq, sq, d, dtype=dtype)
+    k = randn(dev, b * hkv, sk, d, dtype=dtype)
+    v = randn(dev, b * hkv, sk, d, dtype=dtype)
+    do = randn(dev, b * hq, sq, d, dtype=dtype)
+    kw = dict(causal=causal, window=window, q_offset=sk - sq)
+    out, lse = flash_attention_fwd_lse_plain(q, k, v, **kw)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    return (q, k, v, out, lse, do), kw, want
+
+
+def _hold_bwd(inputs, kw, want, blocks, dtype):
+    """The backward with ``blocks``, twice: one launch each, bit-equal,
+    within the attention atol and ``REL_L2`` of the plain version on each
+    of dq, dk, dv."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(*inputs, block_q=blocks[0],
+                              block_kv=blocks[1], **kw)
+    again = flash_attention_bwd(*inputs, block_q=blocks[0],
+                                block_kv=blocks[1], **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-3
+    for a, b, w in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), w.float(), atol=tol, rtol=0)
+        assert_rel_l2(a, w, dtype)
+
+
+@pytest.mark.parametrize("window,s", [(None, 300), (1024, 1100)])
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2), (8, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_head_dim_256_on_card(cuda, hq, hkv, window, s, dtype):
+    """The backward at head dim 256, groups 1, 2 and 8 (paligemma's 8 q
+    heads over one kv head), causal with gemma3's window of 1024 (over
+    1100 tokens, so it masks) and none, ragged edges: bf16 on the tensor
+    cores with the tiler's (64, 64) blocks, f32 on the SIMT lanes; against
+    the plain version at 2e-2 / 2e-3 and ``REL_L2``, bit-equal."""
+    from repro_torch.kernels.tiling import (attention_bwd_blocks,
+                                            attention_bwd_mma_blocks)
+
+    inputs, kw, want = _bwd_case(cuda, 1, hq, hkv, s, s, 256, dtype,
+                                 window=window)
+    pick = attention_bwd_mma_blocks if dtype == torch.bfloat16 \
+        else attention_bwd_blocks
+    blocks = pick(s, s, 256, heads=hq)
+    if dtype == torch.bfloat16:
+        assert blocks == (64, 64)
+    _hold_bwd(inputs, kw, want, blocks, dtype)
+
+
+def test_flash_bwd_head_dim_256_refuses_unbuilt_blocks_on_card(cuda):
+    """At head dim 256 only (64, 64) is built: the larger pairs, whose tiles
+    pass one block's shared memory, raise naming the built set; none falls
+    back to the SIMT kernel or to aten."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    inputs, kw, _ = _bwd_case(cuda, 1, 8, 1, 128, 128, 256, torch.bfloat16)
+    before = flash_attention_bwd.launches
+    for bq, bkv in ((128, 64), (64, 128), (128, 128)):
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention_bwd(*inputs, block_q=bq, block_kv=bkv, **kw)
+    assert flash_attention_bwd.launches == before
+
+
+# whisper-base's training attentions at head dim 64: the encoder's
+# non-causal self attention over 1500 frames (1500 = 23 x 64 + 28), the
+# decoder's 448 tokens across them (Sq != Sk, q_offset = Sk - Sq masking
+# nothing; 448 = 7 x 64) and its causal self attention
+WHISPER_BWD_CASES = [(1500, 1500, False), (448, 1500, False),
+                     (448, 448, True)]
+
+
+@pytest.mark.parametrize("sq,sk,causal", WHISPER_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_whisper_shapes_on_card(cuda, sq, sk, causal, dtype):
+    from repro_torch.kernels.tiling import (attention_bwd_blocks,
+                                            attention_bwd_mma_blocks)
+
+    inputs, kw, want = _bwd_case(cuda, 2, 8, 8, sq, sk, 64, dtype,
+                                 causal=causal)
+    pick = attention_bwd_mma_blocks if dtype == torch.bfloat16 \
+        else attention_bwd_blocks
+    _hold_bwd(inputs, kw, want, pick(sq, sk, 64, heads=16), dtype)
+
+
+@pytest.mark.parametrize("sq", [1500, 448])
+def test_bf16_bwd_gate_rejects_unmasked_key_edge_on_card(cuda, sq):
+    """The backward's relative bound catches the ragged-edge fault the
+    absolute one lets through (``chip_smoke.planted_bwd_fault``): keys and
+    values padded with zeros to 1536 and left unmasked through the LSE
+    forward and the backward.  dq, and dk and dv of the real keys, stay
+    inside 2e-2 of the plain version on the unpadded keys, and outside
+    ``REL_L2``."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_fwd_lse, flash_attention_fwd_lse_plain)
+    from repro_torch.kernels.tiling import (attention_bwd_mma_blocks,
+                                            attention_mma_blocks)
+
+    b, h, s, d, pad = 2, 8, 1500, 64, 36
+    q = randn(cuda, b * h, sq, d, dtype=torch.bfloat16)
+    k = randn(cuda, b * h, s, d, dtype=torch.bfloat16)
+    v = randn(cuda, b * h, s, d, dtype=torch.bfloat16)
+    do = randn(cuda, b * h, sq, d, dtype=torch.bfloat16)
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    bq, bkv = attention_mma_blocks(sq, s + pad, d, heads=b * h)
+    out, lse = flash_attention_fwd_lse(q, kp, vp, causal=False, block_q=bq,
+                                       block_kv=bkv)
+    bq, bkv = attention_bwd_mma_blocks(sq, s + pad, d, heads=b * h)
+    dq, dk, dv = flash_attention_bwd(q, kp, vp, out, lse, do, causal=False,
+                                     block_q=bq, block_kv=bkv,
+                                     q_offset=s + pad - sq)
+    wout, wlse = flash_attention_fwd_lse_plain(q, k, v, causal=False)
+    want = flash_attention_bwd_plain(q, k, v, wout, wlse, do, causal=False,
+                                     q_offset=s - sq)
+    torch.cuda.synchronize()
+    for got, w in zip((dq, dk[:, :s], dv[:, :s]), want):
+        torch.testing.assert_close(got.float(), w.float(), atol=2e-2, rtol=0)
+        with pytest.raises(AssertionError):
+            assert_rel_l2(got, w, torch.bfloat16)
+
+
+def test_flash_bwd_head_dim_256_on_the_tensor_cores_on_card(cuda):
+    """The backward's D256 tensor-core passes are in the library, spill no
+    register (no stack frame and no local memory: ``cuobjdump
+    -res-usage``) and the library's SASS holds mma.sync (HMMA)."""
+    import re
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    _build.library("flash_attention_bwd")
+    out = subprocess.run(
+        [_build._tool("cuobjdump"), "-res-usage",
+         str(_build._target("flash_attention_bwd"))],
+        capture_output=True, text=True, check=True).stdout
+    usage = {f: (stack, local) for f, stack, local in re.findall(
+        r"Function (\S+):\s*\n\s*REG:\d+ STACK:(\d+) SHARED:\d+ "
+        r"LOCAL:(\d+)", out)}
+    d256 = {f: n for f, n in usage.items() if "mma_kernelILi256E" in f}
+    assert len(d256) == 2, sorted(usage)   # the dq and dkv passes, (64, 64)
+    assert all(n == ("0", "0") for n in d256.values()), d256
+    assert _build.sass_counts("flash_attention_bwd")["HMMA"] > 0
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "paligemma-3b"])
+def test_encdec_vlm_train_cli_smoke_on_card(cuda, arch, tmp_path):
+    """``launch.train --smoke`` of whisper and paligemma on the card, with
+    their stub frontends' extras: finite losses, and the LSE forward and
+    the backward launched once an attention and step each, the forward once
+    more for remat (whisper SMOKE: 2 encoder layers and 2 decoder layers of
+    two attentions, 6; paligemma SMOKE: 2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    per = {"whisper-base": 6, "paligemma-3b": 2}[arch]
+    assert get_config(arch, smoke=True).remat
+    out = train.main(["--arch", arch, "--smoke", "--device", "cuda",
+                      "--seq-len", "24", "--global-batch", "2", "--steps",
+                      "3", "--ckpt-dir", str(tmp_path), "--ckpt-every", "0",
+                      "--accel-target", "none"])
+    assert out["report"].steps_run == 3
+    assert all(np.isfinite(out["report"].losses))
+    assert out["launches"]["flash_attention_fwd_lse"] == 2 * 3 * per
+    assert out["launches"]["flash_attention_bwd"] == 3 * per

@@ -29,6 +29,32 @@ def test_three_parts_round_like_an_exact_operand(seed):
         assert two > 2 * exact
 
 
+def test_kernel_order_sums_against_float64():
+    """The backward's order of sums (``kernel_order``) at a small causal
+    attention of group 8, as paligemma's: its float64 arm is
+    ``exact_bwd``'s, and compensated adds of dq, dk and dv come closer to
+    float64 than plain f32 adds do; ``order_counts`` counts every arm."""
+    from repro_torch.kernels.flash_attention import \
+        flash_attention_fwd_lse_plain
+    from repro_torch.launch.attn_probes import (_inputs, exact_bwd,
+                                                kernel_order, order_counts)
+
+    q, k, v, do = _inputs(32, 0, torch.device("cpu"), 1, 8, 1, 128)
+    out, lse = flash_attention_fwd_lse_plain(q, k, v)
+    res = kernel_order(q, k, v, out, lse, do)
+    for a, b in zip(res["exact"], exact_bwd(q, k, v, out, lse, do)):
+        torch.testing.assert_close(a, b)
+    err = {name: [float((t.double() - e).abs().sum())
+                  for t, e in zip(res[name], res["exact"])]
+           for name in ("order", "compensated")}
+    for i in (0, 1, 2):
+        assert err["compensated"][i] < err["order"][i]
+    counts = order_counts(res)
+    assert len(counts["big"]) == 3
+    assert all(len(counts[n]["flips"]) == 3
+               for n in ("order", "compensated", "plain"))
+
+
 # the SSD kernel's operand parts (``launch/ssd_probes.py``,
 # ``csrc/ssd_scan.cu``): at a small chunk, one part of bf16 inputs keeps
 # each term within one bf16 rounding (2^-8, two thirds of the gate), f32

@@ -431,8 +431,10 @@ PINNED_BWD_MMA = {
     (1024, 1024, 128, 64): (64, 64),
     (512, 512, 64, 64): (64, 128),
 }
-# every bf16 backward shape of the card tests and the main path
+# every bf16 backward shape of the card tests and the main path (whisper's
+# encoder, cross and decoder attention at its train batch among them)
 BWD_MMA_SHAPES = sorted(PINNED_BWD_MMA) + [
+    (1500, 1500, 64, 64), (448, 1500, 64, 64), (448, 448, 64, 64),
     (64, 64, 32, 8), (100, 100, 16, 8), (32, 96, 32, 4),
     (48, 48, 16, 2), (40, 40, 64, 4), (70, 130, 128, 8), (130, 70, 16, 4),
     (200, 200, 64, 2), (2048, 2048, 128, 128), (21, 21, 32, 1)]
@@ -496,7 +498,65 @@ def test_flash_bwd_mma_budgets():
     assert flash_bwd_mma_smem_bytes(64, 64, 160) + 1024 <= SMEM_MAX
 
 
-@pytest.mark.parametrize("head_dim", [8, 48, 80, 96, 256])
+# the D256 shapes of the train paths: paligemma-3b (batch 4, 8 q heads, an
+# image prefix of 256 and 256 text tokens) and gemma3-12b (batch 4, 16 q
+# heads, 2048 tokens)
+BWD_MMA_D256 = [(512, 512, 256, 32), (2048, 2048, 256, 64)]
+
+
+@pytest.mark.parametrize("shape", BWD_MMA_D256)
+def test_attention_bwd_mma_blocks_at_head_dim_256(shape):
+    """Only (64, 64) fits at head dim 256: its tiles take 203,008 B in the
+    dq pass and 203,776 B in the dkv pass, past half of shared memory (one
+    block holds an SM, as at 160) but within one block's; every larger
+    pair passes one block's."""
+    from repro_torch.kernels.tiling import (FLASH_BWD_MMA_BLOCKS,
+                                            attention_bwd_mma_blocks,
+                                            flash_bwd_mma_smem_bytes)
+
+    sq, sk, d, heads = shape
+    assert attention_bwd_mma_blocks(sq, sk, d, heads=heads) == (64, 64)
+    row = 2 * (256 + 8)
+    assert (2 * 64 + 4 * 64) * row + 4 * 64 == 203_008
+    assert flash_bwd_mma_smem_bytes(64, 64, 256) == 203_776
+    assert 2 * (203_776 + 1024) > SMEM_MAX >= 203_776 + 1024
+    assert [(bq, bkv) for bq in FLASH_BWD_MMA_BLOCKS
+            for bkv in FLASH_BWD_MMA_BLOCKS
+            if flash_bwd_mma_smem_bytes(bq, bkv, 256) <= SMEM_MAX] == \
+        [(64, 64)]
+
+
+def test_flash_bwd_mma_regs_follow_the_walk():
+    """The fragments count one walk's accumulator columns: the whole head
+    dim up to 128, half of it above (160 -> 80, 256 -> 128), so D256
+    holds what D128 holds."""
+    from repro_torch.kernels.tiling import (FLASH_BWD_MMA_FRAG_REGS,
+                                            FLASH_BWD_MMA_SLICE,
+                                            flash_bwd_mma_regs,
+                                            flash_bwd_walk_cols)
+
+    slices = 2 * 16 * FLASH_BWD_MMA_SLICE // 32
+    for d, cols in ((64, 64), (128, 128), (160, 80), (256, 128)):
+        assert flash_bwd_walk_cols(d) == cols
+        assert flash_bwd_mma_regs(d) == cols // 2 + slices
+    assert flash_bwd_mma_regs(256) == flash_bwd_mma_regs(128) == 96
+    assert flash_bwd_mma_regs(256) < FLASH_BWD_MMA_FRAG_REGS
+
+
+def test_attention_bwd_mma_blocks_refuse_tiles_past_one_block(monkeypatch):
+    """A shape whose smallest tiles pass one block's shared memory raises
+    rather than returning blocks the launch would refuse."""
+    from repro_torch.kernels import tiling
+
+    smem, rf = tiling._budgets()
+    monkeypatch.setattr(tiling, "_budgets", lambda: (200_000, rf))
+    with pytest.raises(ValueError, match="shared memory"):
+        tiling.attention_bwd_mma_blocks(512, 512, 256, heads=32)
+    assert tiling.attention_bwd_mma_blocks(512, 512, 128, heads=64) == \
+        (64, 64)
+
+
+@pytest.mark.parametrize("head_dim", [8, 48, 80, 96, 192])
 def test_attention_bwd_mma_blocks_refuse_other_head_dims(head_dim):
     from repro_torch.kernels.tiling import attention_bwd_mma_blocks
 

@@ -173,25 +173,40 @@ def test_bwd_plain_sums_the_group_over_kv_heads():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("window", [0, 8])
-@pytest.mark.parametrize("sq", [32, 20])
-def test_function_grads_match_jax_dense_attention(window, sq):
+# (sq, sk, causal, window): causal self attention with and without a
+# window, at a block multiple and a ragged edge; then the non-causal shapes
+# of an encoder (Sq = Sk, ragged) and of a cross attention (Sq != Sk either
+# way, ragged Sk), where the Function's q_offset = Sk - Sq masks nothing
+FUNCTION_CASES = {"32-0": (32, 32, True, 0), "32-8": (32, 32, True, 8),
+                  "20-0": (20, 20, True, 0), "20-8": (20, 20, True, 8),
+                  "noncausal-45x45": (45, 45, False, 0),
+                  "noncausal-12x45": (12, 45, False, 0),
+                  "noncausal-45x12": (45, 12, False, 0),
+                  "noncausal-1x37": (1, 37, False, 0)}
+
+
+@pytest.mark.parametrize("sq,sk,causal,window",
+                         list(FUNCTION_CASES.values()),
+                         ids=list(FUNCTION_CASES))
+def test_function_grads_match_jax_dense_attention(sq, sk, causal, window):
     """GQA (Hq 4, Hkv 2) gradients of sum(out * dout), the port's Function
     against ``jax.grad`` through the reference's ``dense_attention`` (the
-    models' window: 0 is none)."""
+    models' window: 0 is none; the reference's q_offset 0 where the
+    non-causal masks read none)."""
     b, hq, hkv, d = 2, 4, 2, 16
     (q, jq), (k, jk), (v, jv), (do, jdo) = (
-        pair(b, hq, sq, d), pair(b, hkv, sq, d), pair(b, hkv, sq, d),
+        pair(b, hq, sq, d), pair(b, hkv, sk, d), pair(b, hkv, sk, d),
         pair(b, hq, sq, d))
 
     def jloss(q_, k_, v_):
-        o = ref_attention.dense_attention(q_, k_, v_, causal=True,
+        o = ref_attention.dense_attention(q_, k_, v_, causal=causal,
                                           window=window)
         return jnp.sum(o * jdo)
 
     want = jax.grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    out = ops.covenant_attention(*leaves, causal=True, window=window or None)
+    out = ops.covenant_attention(*leaves, causal=causal,
+                                 window=window or None)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, leaves, do)
     for a, bb in zip(got, want):
