@@ -104,8 +104,8 @@
    shapes in bf16 and f32 (whisper, batch 8: the non-causal encoder over
    1500 frames, the 448-token decoder across them, its causal self
    attention; paligemma, batch 4: causal at head dim 256, 8 q heads over
-   one kv head, 256 + 256 tokens; and gemma3-12b's D256 backward, window
-   1024 and none), each gated in relative L2 too, and whisper's ragged
+   one kv head, 256 + 256 tokens), each gated in relative L2 too, and
+   whisper's ragged
    key edge left unmasked through the LSE forward and the backward on
    purpose, which the backward's relative gate must reject
    (``planted_bwd_fault``); then one train step at full width and reduced
@@ -116,7 +116,25 @@
    1152) patches), no checkpoint, every counter from 0, the LSE forward
    and the backward required exactly ``train_attention_launches`` times;
    and one profiled train step each;
-13. prints the count of ``device_ms`` windows taken again as the host
+13. trains olmoe-1b-7b, deepseek-moe-16b, stablelm-12b, gemma3-12b and
+   command-r-plus-104b at full width and reduced depth (``TRAIN_CONFIGS``:
+   8, 6, 10, 12 and 1 layers; 2 x 2048 tokens, command-r 1 x 2048), each
+   freed before the next loads: the layer report's GEMMs at the train
+   tokens; the LSE forward and the backward at the train shape in bf16
+   and f32 (the MoE family's 16 heads of 128, stablelm's 32 q / 8 kv of
+   160, gemma3's 16 / 8 of 256 with its window of 1024 and without,
+   command-r's 96 / 8 of 128), gated as phase 12's; for the MoE archs one
+   layer's dispatch backward at full width, bit-equal on two card runs in
+   bf16 and f32 and within 1e-4 of the CPU's in f32 with tokens dropped
+   (``check_moe_backward``); one train step at full width and the gate
+   depth, kernel path against plain path in f32 (loss 1e-4, gradient
+   1e-3) and bf16 (3x the plain path's one-ulp spread), with the MoE
+   archs' routing differences beside them; then ``launch.train
+   --n-layers`` for 3 steps, no checkpoint, every counter from 0, the LSE
+   forward and the backward exactly ``train_attention_launches`` times,
+   none of the other attention and SSD kernels, the peak device memory at
+   most 70 GiB; and one profiled train step each;
+14. prints the count of ``device_ms`` windows taken again as the host
    fell behind and of profiler windows that lost records, and what they
    left (``launch.layers.DEVICE_WINDOWS``, ``PROFILER_WINDOWS``), a
    ``kernels`` JSON line (six kernels, launches summed over every path)
@@ -160,10 +178,11 @@ from repro_torch.launch.layers import (  # noqa: E402
     profile_window)
 from repro_torch.models import get_model, moe  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim.adamw import leaf_slices  # noqa: E402
 from repro_torch.runtime import (make_loss_with_accum,  # noqa: E402
                                  make_train_step)
 from repro_torch.targets import H100  # noqa: E402
-from repro_torch.tree import tree_map, tree_paths  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map, tree_paths  # noqa: E402
 
 ARCH = "qwen3-0.6b"
 BATCH, PROMPT, MAX_NEW, REQUESTS, MAX_LEN = 4, 512, 32, 8, 1024
@@ -308,10 +327,28 @@ COMPARE_STEPS = 8            # decode steps of compare_encdec_vlm
 # and 2 layers (paligemma)
 ENCDEC_VLM_TRAIN = {"whisper-base": (8, 448, 2), "paligemma-3b": (4, 256, 2)}
 ENCDEC_VLM_TRAIN_STEPS = 3
-# gemma3-12b's training attention (batch 4, 2048 tokens, 16 q / 8 kv heads
-# of 256, its local window and its global layers): the D256 backward's
-# second caller, held here though gemma3 is not trained yet
-GEMMA3_TRAIN = dict(b=4, hq=16, hkv=8, s=2048, d=256)
+# phase 13, the MoE family and the other dense configs trained at full
+# width and reduced depth, in this order, each freed before the next:
+# (launch.train's depth, batch, tokens a row; the gate step's depth,
+# batch, tokens a row).  AdamW keeps bf16 params and grads and two f32
+# moments, 12 bytes a parameter: the depths keep that at 41-57 GB
+# (olmoe 8 of 16 layers, 3.56 B parameters; deepseek its dense layer and
+# 5 MoE layers of 28, 3.44 B; stablelm 10 of 40, 3.81 B; gemma3 two
+# periods of 5 local and 1 global of 48, 3.70 B; command-r 1 of 64 beside
+# its 3.15 B tied embedding, 4.72 B).  2 x 2048 tokens are 2k-token
+# fine-tuning sequences: olmoe's experts take 640 slots, deepseek's 480,
+# and gemma3's window of 1024 bites; command-r takes one sequence, whose
+# 2048 x 256000 logits and their gradient must fit beside 56.6 GB.  The
+# gate steps run in f32 (4 bytes a parameter and a gradient, twice): 2
+# layers (deepseek: its dense one and one MoE layer), gemma3 one period of
+# 6 at 1 x 2048 so the window bites, command-r 1 layer at 1 x 1024
+TRAIN_CONFIGS = {"olmoe-1b-7b": (8, 2, 2048, 2, 2, 2048),
+                 "deepseek-moe-16b": (6, 2, 2048, 2, 2, 2048),
+                 "stablelm-12b": (10, 2, 2048, 2, 2, 2048),
+                 "gemma3-12b": (12, 2, 2048, 6, 1, 2048),
+                 "command-r-plus-104b": (1, 1, 2048, 1, 1, 1024)}
+TRAIN_CONFIG_STEPS = 3
+TRAIN_PEAK_GIB = 70.0   # the most device memory a phase-13 run may take
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -621,8 +658,8 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
     the model's ``window`` or none, or with ``causal=False`` an encoder's or
     a cross attention's, ``sq`` queries against ``s`` keys (q row 0 at kv
     position s - sq, as ``FlashAttention`` hands it); device times and
-    aten's flash forward (which also returns the logsumexp, where it takes
-    the shape: no window) on the main path's shapes."""
+    aten's flash forward (which also returns the logsumexp; with a window,
+    ``aten_flash_window``) on the main path's shapes."""
     sq = s if sq is None else sq
     q, k, v, _ = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype, sq)
     pick = attention_mma_blocks if dtype == torch.bfloat16 \
@@ -647,14 +684,15 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
     plain_ms = mean_ms(lambda: flash_attention_fwd_lse_plain(
         q, k, v, **kw), dev, 10)
     library_ms = library_dev_ms = None
-    if dtype == torch.bfloat16 and not window:
+    if dtype == torch.bfloat16:
         # aten's flash forward, which also returns the logsumexp; it takes
         # equal head counts, so k and v are repeated before the timing
         q4 = q.reshape(b, hq, sq, d)
         k4 = k.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
         v4 = v.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
-        lib = lambda: torch.ops.aten._scaled_dot_product_flash_attention(  # noqa: E731
-            q4, k4, v4, 0.0, causal)
+        lib = (lambda: aten_flash_window(q4, k4, v4, window)) if window \
+            else (lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                q4, k4, v4, 0.0, causal))
         library_ms = mean_ms(lib, dev, 10)
         library_dev_ms = device_ms(lib) if main_path else None
     pairs = _pairs(b, hq, s, causal, window, sq)
@@ -678,6 +716,26 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
             rel_tol=ATTN_REL_L2[dtype])
 
 
+def aten_flash_window(q, k, v, window: int, do=None):
+    """aten's flash attention with its own sliding window, the library
+    yardstick of a windowed causal forward and backward: q, k, v (and
+    ``do``) in (B, H, S, D), equal head counts -> (out in (B, S, H, D),
+    the logsumexp in (B, H, S), and with ``do`` a callable that runs the
+    backward on them, else None).  Key j is visible to row i where
+    i - (window - 1) <= j <= i, the models' ``j > i - window``."""
+    bshd = [t.transpose(1, 2) for t in (q, k, v)]
+    sq, sk = q.shape[2], k.shape[2]
+    win = dict(window_size_left=window - 1, window_size_right=0)
+    out, lse, rng, unused, _ = torch.ops.aten._flash_attention_forward(
+        *bshd, None, None, sq, sk, 0.0, True, False, **win)
+    if do is None:
+        return out, lse, None
+    dob = do.transpose(1, 2)
+    return out, lse, lambda: torch.ops.aten._flash_attention_backward(
+        dob, *bshd, out, lse, None, None, sq, sk, 0.0, True, rng, unused,
+        **win)
+
+
 def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
               main_path, causal: bool = True, sq: int | None = None) -> None:
     """The backward against its plain version on the plain forward's
@@ -686,8 +744,8 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
     queries against ``s`` keys, ``q_offset = s - sq`` as ``FlashAttention``
     hands it.  Gated at the attention atol and, on each of dq, dk and dv, at
     ``ATTN_REL_L2`` (see ``planted_bwd_fault``); bit-equal on two runs;
-    device times and aten's flash backward (where it takes the shape: no
-    window) on the main path's shapes."""
+    device times and aten's flash backward (with a window,
+    ``aten_flash_window``'s) on the main path's shapes."""
     sq = s if sq is None else sq
     q, k, v, do = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype, sq)
     pick = attention_bwd_mma_blocks if dtype == torch.bfloat16 \
@@ -711,20 +769,24 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
     plain_ms = mean_ms(lambda: flash_attention_bwd_plain(
         q, k, v, out, lse, do, **kw), dev, 5)
     library_ms = library_dev_ms = None
-    if dtype == torch.bfloat16 and not window:
+    if dtype == torch.bfloat16:
         # aten's flash backward on its own forward's residuals (k and v
         # repeated, so it returns per-q-head dk, dv without the group sum)
         q4 = q.reshape(b, hq, sq, d)
         k4 = k.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
         v4 = v.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
         do4 = do.reshape(b, hq, sq, d)
-        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-            q4, k4, v4, 0.0, causal)
-        o4, lse4, cq, ck, mq, mk, seed, offset = fwd[:8]
-        aten_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
-        lib = lambda: aten_bwd(  # noqa: E731
-            do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, causal, seed,
-            offset)
+        if window:
+            lib = aten_flash_window(q4, k4, v4, window, do4)[2]
+        else:
+            fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+                q4, k4, v4, 0.0, causal)
+            o4, lse4, cq, ck, mq, mk, seed, offset = fwd[:8]
+            aten_bwd = \
+                torch.ops.aten._scaled_dot_product_flash_attention_backward
+            lib = lambda: aten_bwd(  # noqa: E731
+                do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, causal, seed,
+                offset)
         library_ms = mean_ms(lib, dev, 10)
         library_dev_ms = device_ms(lib) if main_path else None
     pairs = _pairs(b, hq, s, causal, window, sq)
@@ -1121,12 +1183,17 @@ def train_main_path() -> tuple[dict, dict, dict]:
 
 def _grad_rel_l2(gk, gp) -> tuple[float, bool]:
     """Relative L2 of the flattened gradient ``gk`` against ``gp``, and
-    whether every leaf of ``gk`` is finite."""
+    whether every leaf of ``gk`` is finite; in f32 on ``gp``'s device, a
+    slice of a leaf at a time (``leaf_slices``: command-r's tied embedding
+    is one leaf of 3.1 B parameters, 12.6 GB in f32)."""
     num = den = 0.0
+    finite = True
     for (_, a), (_, b) in zip(tree_paths(gk), tree_paths(gp)):
-        num += float((a.float() - b.float()).square().sum())
-        den += float(b.float().square().sum())
-    finite = all(bool(torch.isfinite(g).all()) for _, g in tree_paths(gk))
+        for sa, sb in leaf_slices(a, b):
+            sa = sa.to(sb.device)
+            num += float((sa.float() - sb.float()).square().sum())
+            den += float(sb.float().square().sum())
+            finite = finite and bool(torch.isfinite(sa).all())
     return (num / den) ** 0.5, finite
 
 
@@ -1195,7 +1262,11 @@ def compare_train_step(tag: str, cfg, dev, batch_n: int, seq: int, *,
     plain path's own spread (the plain path against itself with entry 0
     of the norm scale ``moved`` = (stack, norm) of layer 0 moved one bf16
     ulp), never below ``GRAD_REL_L2_BF16``.  The kernel path must launch
-    each kernel of ``need``.  The callers derive these bounds."""
+    each kernel of ``need``.  For an MoE config, the (token, expert)
+    assignments that differ between the paths' forwards in each MoE layer
+    are printed beside each gate (and, in bf16, those between the plain
+    path and its moved twin beside the spread).  The callers derive these
+    bounds."""
     stack, norm = moved
     rng = np.random.default_rng(seed)
     out = {}
@@ -1205,20 +1276,33 @@ def compare_train_step(tag: str, cfg, dev, batch_n: int, seq: int, *,
         model = get_model(c, device=dev)
         batch = _train_batch(model, batch_n, seq, int(rng.integers(1 << 30)))
         params = model.init_params(1)
-        res = {}
+        res, models = {}, {}
         for fn in KERNEL_FNS:
             fn.launches = 0
         for attn in ("kernel", "plain"):
-            model = get_model(c, device=dev, attn=attn)
-            res[attn] = make_loss_with_accum(model.loss_fn, 1)(params, batch)
+            model = models[attn] = get_model(c, device=dev, attn=attn)
+            loss, grads = make_loss_with_accum(model.loss_fn, 1)(params,
+                                                                 batch)
             if attn == "kernel":
                 launches = train.kernel_launches()
+                # on the host while the plain path runs: command-r's f32
+                # gradient takes 18.9 GB, and its tied embedding's backward
+                # 12.6 GB buffers beside it
+                grads = tree_map(lambda g: g.cpu(), grads)
+            res[attn] = loss, grads
+        del loss, grads
+        routed = c.family == "moe"
+        if routed:
+            kept = {attn: _kept_by_layer(
+                lambda m=m: m.loss_fn(params, batch), len(params["layers"]),
+                f"{tag} {dt} {attn}") for attn, m in models.items()}
+            flips = _differing(kept["kernel"], kept["plain"])
         (lk, gk), (lp, gp) = res["kernel"], res["plain"]
         loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
         rel, finite = _grad_rel_l2(gk, gp)
         front_rel = None if front is None else _grad_rel_l2(
             {k: gk[k] for k in front}, {k: gp[k] for k in front})[0]
-        spread = None
+        spread = spread_flips = None
         if dt == "bfloat16":
             lp0 = params[stack][0]
             moved_p = {**params, stack: [
@@ -1229,6 +1313,11 @@ def compare_train_step(tag: str, cfg, dev, batch_n: int, seq: int, *,
             _, gm = make_loss_with_accum(model.loss_fn, 1)(moved_p, batch)
             spread = _grad_rel_l2(gm, gp)[0]
             grad_tol = max(grad_tol, SSM_BF16_SPREAD * spread)
+            if routed:
+                spread_flips = _differing(_kept_by_layer(
+                    lambda: model.loss_fn(moved_p, batch),
+                    len(params["layers"]), f"{tag} {dt} moved"),
+                    kept["plain"])
             del moved_p, gm
         front_tol = GRAD_REL_L2_F32 if dt == "float32" and front else None
         depth = f"{c.n_layers} layers" + (
@@ -1236,6 +1325,10 @@ def compare_train_step(tag: str, cfg, dev, batch_n: int, seq: int, *,
         front_txt = "" if front is None else (
             f"; {'+'.join(sorted(front))} rel_l2 {front_rel:.3e} (tol "
             f"{front_tol})")
+        if routed:
+            front_txt += (f"; (token, expert) assignments that differ by MoE "
+                          f"layer, kernel against plain {flips}, plain "
+                          f"against its moved twin {spread_flips}")
         print(f"[{tag} {dt}] {depth}, {batch_n} x {seq}: loss kernel "
               f"{float(lk):.6f} plain {float(lp):.6f} rel {loss_rel:.3e} "
               f"(tol {loss_tol}); gradient rel_l2 {rel:.3e} (tol "
@@ -1260,7 +1353,10 @@ def compare_train_step(tag: str, cfg, dev, batch_n: int, seq: int, *,
                        loss_rel=loss_rel, grad_rel_l2=rel, grad_tol=grad_tol,
                        frontend_rel_l2=front_rel, plain_spread=spread,
                        launches=launches)
-        del res, gk, gp, params, model
+        if routed:
+            out[dt].update(routing_differs=flips,
+                           plain_spread_routing_differs=spread_flips)
+        del res, gk, gp, params, model, models
         torch.cuda.empty_cache()
     return out
 
@@ -1281,29 +1377,35 @@ def train_ssm_main_path(arch: str) -> dict:
 
 
 def train_full_depth(tag: str, arch: str, batch: int, seq: int, steps: int,
-                     required: dict) -> dict:
-    """``launch.train --arch arch`` at full width and depth with its
-    defaults (kernel path, bf16, the model's stub-frontend extras) for
-    ``steps`` steps of ``batch`` x ``seq``, every counter from 0, no
-    checkpoint.  Each kernel of ``required`` must launch exactly that many
-    times (None: at least once), and every loss must be finite."""
+                     required: dict, n_layers: int = 0,
+                     peak_gib: float | None = None) -> dict:
+    """``launch.train --arch arch`` at full width and depth (or at
+    ``--n-layers n_layers``) with its defaults (kernel path, bf16, the
+    model's stub-frontend extras) for ``steps`` steps of ``batch`` x
+    ``seq``, every counter from 0, no checkpoint.  Each kernel of
+    ``required`` must launch exactly that many times (None: at least
+    once), every loss must be finite, and the peak device memory must stay
+    at or under ``peak_gib`` where one is given."""
     for fn in KERNEL_FNS:
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     stats = train.main(["--arch", arch, "--seq-len", str(seq),
                         "--global-batch", str(batch), "--steps", str(steps),
                         "--seed", "0", "--device", "cuda", "--ckpt-dir",
-                        str(CKPT_DIR), "--ckpt-every", "0"])
+                        str(CKPT_DIR), "--ckpt-every", "0", "--n-layers",
+                        str(n_layers)])
     torch.cuda.synchronize()
     launches = train.kernel_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     rep = stats["report"]
     print(f"[{tag}] {rep.steps_run} steps of {batch} x {seq} at full width "
-          f"and depth, losses {[round(x, 4) for x in rep.losses]}, step "
-          f"seconds {[round(x, 4) for x in rep.step_seconds]}, "
+          f"and {stats['n_layers']} layers, losses "
+          f"{[round(x, 4) for x in rep.losses]}, step seconds "
+          f"{[round(x, 4) for x in rep.step_seconds]}, "
           f"{stats['ms_per_step']:.1f} ms per step after the first; "
           f"launches {launches}, required {required} (None: at least "
-          f"one); peak device memory {peak_gb:.1f} GiB", flush=True)
+          f"one); peak device memory {peak_gb:.2f} GiB (limit {peak_gib})",
+          flush=True)
     for name, n in required.items():
         if (launches[name] <= 0) if n is None else (launches[name] != n):
             raise AssertionError(f"{tag}: {name} launched {launches[name]} "
@@ -1311,10 +1413,14 @@ def train_full_depth(tag: str, arch: str, batch: int, seq: int, steps: int,
     if rep.steps_run != steps or not all(np.isfinite(rep.losses)):
         raise AssertionError(f"{tag}: {rep.steps_run} steps, losses "
                              f"{rep.losses}")
+    if peak_gib is not None and peak_gb > peak_gib:
+        raise AssertionError(f"{tag}: peak device memory {peak_gb:.2f} GiB "
+                             f"> {peak_gib}")
     return dict(ms_per_step=stats["ms_per_step"],
                 tokens_per_s=stats["tokens_per_s"], losses=rep.losses,
                 step_seconds=rep.step_seconds, launches=launches,
-                required=required, peak_gib=peak_gb)
+                required=required, peak_gib=peak_gb,
+                n_layers=stats["n_layers"])
 
 
 # ---------------------------------------------------------------------------
@@ -1607,35 +1713,48 @@ def compare_dense(cfg, dev, prompt: int = DENSE_PROMPT,
             model, params)
 
 
-def routing_differences(amodel, aparams, bmodel, bparams, prompt: int,
-                        max_len: int, label: str) -> list[int]:
-    """For each MoE layer of one prefill of the prompt ``_compare`` feeds,
-    the (token, expert) assignments kept on one side and not on the
-    other (a token whose top-k changed by one expert counts 2)."""
-    rng = np.random.default_rng(1)
-    toks = torch.as_tensor(rng.integers(2, amodel.cfg.vocab,
-                                        (BATCH, prompt)),
-                           device=amodel.device)
+def _kept_by_layer(run, n_moe: int, label: str) -> list[torch.Tensor]:
+    """The (token, expert) assignments that each MoE layer keeps over
+    ``run()`` (without grad), recorded through ``moe.moe_ffn``; raises
+    unless it recorded one a MoE layer (a patched name that stopped being
+    called would show no differences)."""
     kept, ffn = [], moe.moe_ffn
 
     def recording(cfg, p, x):
-        kept[-1].append(moe.kept_assignments(cfg, p, x))
+        kept.append(moe.kept_assignments(cfg, p, x))
         return ffn(cfg, p, x)
 
     moe.moe_ffn = recording
     try:
-        for model, params in ((amodel, aparams), (bmodel, bparams)):
-            kept.append([])
-            model.prefill(params, {"tokens": toks},
-                          model.init_cache(BATCH, max_len))
+        with torch.no_grad():
+            run()
     finally:
         moe.moe_ffn = ffn
-    n_moe = len(aparams["layers"])
-    if [len(k) for k in kept] != [n_moe, n_moe]:
-        raise RuntimeError(
-            f"{label}: recorded {[len(k) for k in kept]} MoE layers' "
-            f"routing, expected {n_moe} on each side")
-    out = [int((a != b).sum()) for a, b in zip(*kept)]
+    if len(kept) != n_moe:
+        raise RuntimeError(f"{label}: recorded {len(kept)} MoE layers' "
+                           f"routing, expected {n_moe}")
+    return kept
+
+
+def _differing(a: list, b: list) -> list[int]:
+    """For each MoE layer, the (token, expert) assignments kept on one side
+    and not on the other (a token whose top-k changed by one expert counts
+    2)."""
+    return [int((x != y).sum()) for x, y in zip(a, b)]
+
+
+def routing_differences(amodel, aparams, bmodel, bparams, prompt: int,
+                        max_len: int, label: str) -> list[int]:
+    """``_differing`` over one prefill of the prompt ``_compare`` feeds."""
+    rng = np.random.default_rng(1)
+    toks = torch.as_tensor(rng.integers(2, amodel.cfg.vocab,
+                                        (BATCH, prompt)),
+                           device=amodel.device)
+    out = _differing(*(_kept_by_layer(
+        lambda m=model, p=params: m.prefill(p, {"tokens": toks},
+                                            m.init_cache(BATCH, max_len)),
+        len(aparams["layers"]), label)
+        for model, params in ((amodel, aparams), (bmodel, bparams))))
     print(f"[compare] {label}: (token, expert) assignments that differ, by "
           f"MoE layer of the prefill: {out} (of {BATCH * prompt} tokens x "
           f"top-{amodel.cfg.top_k})", flush=True)
@@ -2029,9 +2148,9 @@ def train_encdec_vlm(rec: Record, dev, gen, arch: str) -> dict:
     shapes in bf16 (the main path) and f32 (whisper's non-causal encoder
     over 1500 frames, its cross attention of 448 decoder tokens across
     them and its causal decoder attention; paligemma's causal D256
-    attention at group 8 over 256 + 256 tokens, and gemma3-12b's D256
-    backward beside it), whisper's ragged key edge left unmasked through
-    both on purpose (``planted_bwd_fault``); then the gate step
+    attention at group 8 over 256 + 256 tokens), whisper's ragged key edge
+    left unmasked through both on purpose (``planted_bwd_fault``); then
+    the gate step
     (``compare_encdec_vlm_train_paths``), ``launch.train`` at full width
     and depth (``train_encdec_vlm_main_path``) and one profiled step."""
     cfg = configs.get_config(arch)
@@ -2053,16 +2172,160 @@ def train_encdec_vlm(rec: Record, dev, gen, arch: str) -> dict:
             for check in (check_fwd_lse, check_bwd):
                 check(rec, dev, gen, dtype=dtype, window=None,
                       main_path=main, **heads, **shape)
-        if cfg.family == "vlm":
-            for window in (1024, None):
-                check_bwd(rec, dev, gen, dtype=dtype, window=window,
-                          main_path=False, **GEMMA3_TRAIN)
     faults = planted_bwd_fault(dev, gen, sk=cfg.enc_frames, sq=seq,
                                **heads) if cfg.family == "audio" else None
     gates = compare_encdec_vlm_train_paths(arch, dev)
     run = train_encdec_vlm_main_path(arch)
     prof = profile_train_step(cfg, dev, batch_n, seq, 1)
     return dict(gates=gates, planted_faults=faults, profile=prof, **run)
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the MoE family and the other dense configs trained
+# ---------------------------------------------------------------------------
+
+
+def moe_layer_grads(cfg, p: dict, x: torch.Tensor, w: torch.Tensor
+                    ) -> tuple:
+    """The gradient of ``sum(moe_ffn(x) * w)`` for x and every leaf of one
+    MoE layer's params ``p``, in the order (x, *leaves)."""
+    p = tree_map(lambda t: t.detach().requires_grad_(True), p)
+    x = x.detach().requires_grad_(True)
+    out = moe.moe_ffn(cfg, p, x)
+    return torch.autograd.grad((out.float() * w).sum(), [x, *tree_leaves(p)])
+
+
+def check_moe_backward(cfg, dev, batch: int, seq: int) -> dict:
+    """One MoE layer's backward at full width on ``batch`` x ``seq`` tokens
+    with ``check_moe_dispatch``'s shared component, which crowds a few
+    experts past their capacity: in bf16 (the main path's dtype) and f32,
+    the gradient of the input and of every weight bit-equal on two card
+    runs; in f32, drops must happen and each gradient must come within
+    ``MOE_DISPATCH_REL_L2`` of the CPU's on the same weights and tokens
+    (seeded on the CPU).  The dispatch gathers each token once per top-k
+    choice (``xf[token]``), so the input's gradient sums k rows a token
+    through the gather's backward: a sum whose order must not change from
+    run to run.
+
+    Bound, 1e-4, as ``check_moe_dispatch``'s: both sides compute the same
+    f32 products (no TF32) and differ in the order of their sums, over
+    d_ff (1024 or 1408) terms for the input, over up to the capacity's
+    tokens for an expert's weights and over all tokens for the router's,
+    about sqrt(K) u; one token routed, kept or dropped otherwise moves its
+    gradient row and its experts' weights by a whole share."""
+    out = {}
+    for dt in ("bfloat16", "float32"):
+        c = cfg.replace(param_dtype=dt, compute_dtype=dt)
+        gen = torch.Generator().manual_seed(0)
+        p = moe.init_moe_ffn(c, gen)
+        x = (torch.randn((batch, seq, c.d_model), generator=gen) + MOE_COMMON
+             * torch.randn((c.d_model,), generator=gen)).to(getattr(torch, dt))
+        w = torch.randn((batch, seq, c.d_model), generator=gen)
+        pd, xd, wd = tree_map(lambda a: a.to(dev), p), x.to(dev), w.to(dev)
+        run = lambda: moe_layer_grads(c, pd, xd, wd)  # noqa: E731
+        same = bit_equal(run)
+        res = dict(bit_equal=same)
+        ok = same
+        if dt == "float32":
+            got = [g.cpu() for g in run()]
+            t0 = time.perf_counter()
+            want = moe_layer_grads(c, p, x, w)
+            cpu_s = time.perf_counter() - t0
+            dropped = batch * seq * c.top_k - int(
+                moe.kept_assignments(c, p, x).sum())
+            rels = [rel_l2(a, b) for a, b in zip(got, want)]
+            res.update(dropped=dropped, input_rel_l2=rels[0],
+                       weights_rel_l2=max(rels[1:]), cpu_s=cpu_s)
+            ok = ok and dropped > 0 and max(rels) <= MOE_DISPATCH_REL_L2
+            del got, want
+        print(f"[moe] {cfg.name} dispatch backward, one layer, {batch}x{seq} "
+              f"tokens {dt}: gradients of the input and the "
+              f"{len(tree_leaves(p))} weights "
+              f"{'bit-equal' if same else 'NOT bit-equal'} on two card runs"
+              + ("" if dt != "float32" else
+                 f"; {res['dropped']} assignments dropped; card against CPU "
+                 f"rel_l2 input {res['input_rel_l2']:.3e}, weights at most "
+                 f"{res['weights_rel_l2']:.3e} (tol {MOE_DISPATCH_REL_L2}); "
+                 f"CPU {res['cpu_s']:.1f} s")
+              + f" {'ok' if ok else 'FAILED'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{cfg.name} dispatch backward {dt}: {res}")
+        out[dt] = res
+        del p, pd, x, xd, w, wd
+        torch.cuda.empty_cache()
+    return out
+
+
+def compare_config_train_paths(arch: str, dev) -> dict:
+    """One train step of an MoE or dense config at full width and the gate
+    depth of ``TRAIN_CONFIGS`` (``compare_train_step``), kernel path
+    against plain path on the same weights and batch, in f32 and then in
+    bf16.  The kernel path runs ``FlashAttention``: the MoE family's D128
+    at group 1, stablelm's D160 at group 4, gemma3's D256 at group 2 with
+    its window on 5 of 6 layers, command-r's D128 at group 12.
+
+    Bounds, derived as ``compare_train_paths``' before the first run.  In
+    f32 the two paths differ only by the order of f32 sums inside
+    attention: about sqrt(2048) * 2^-24 = 2.7e-6 relative an attention
+    output at 2048 keys, over 1 to 6 layers forward and back a few 1e-6;
+    |dloss| / |loss| <= 1e-4 and a gradient relative L2 <= 1e-3 leave two
+    orders of headroom.  For the MoE archs a token whose top-k choices sit
+    within that of each other can switch experts: it moves that token's
+    gradient rows, and its experts' weights by one token's share of 640
+    or 480 slots, against a gradient whose norm is mostly the embedding's;
+    the assignments that differ are printed beside the gate.  In bf16 the
+    gradient is held to ``SSM_BF16_SPREAD`` times the plain path's own
+    one-ulp spread (never below 5e-2), as for the SSM, whisper and
+    paligemma archs.  For the MoE archs one ulp reroutes tokens on both
+    sides alike: the kernel path against the plain path and the plain path
+    against its moved twin each differ by rounding and by the reroutes it
+    causes, so the same rule holds, and the reroutes are printed beside
+    the spread."""
+    _, _, _, depth, batch_n, seq = TRAIN_CONFIGS[arch]
+    cfg = configs.get_config(arch).replace(n_layers=depth)
+    return compare_train_step(
+        f"config-train {arch}", cfg, dev, batch_n, seq, seed=6,
+        moved=("layers", "ln1"),
+        need=["flash_attention_fwd_lse", "flash_attention_bwd"])
+
+
+def train_config(rec: Record, dev, gen, arch: str, seen: set) -> dict:
+    """An MoE or dense config trained at full width and the depth of
+    ``TRAIN_CONFIGS``: its layer report's GEMMs at the train tokens; the
+    LSE forward and the backward at its train shape (each window its
+    layers use) in bf16 (the main path) and f32, a shape in ``seen`` (an
+    earlier config's) not again; for an MoE config the dispatch's backward
+    (``check_moe_backward``); the gate step
+    (``compare_config_train_paths``); ``launch.train --n-layers`` for
+    ``TRAIN_CONFIG_STEPS`` steps, the LSE forward and the backward exactly
+    ``train_attention_launches`` times, no other attention or SSD kernel,
+    the peak at most ``TRAIN_PEAK_GIB``; and one profiled step."""
+    depth, batch_n, seq, _, _, _ = TRAIN_CONFIGS[arch]
+    cfg = configs.get_config(arch).replace(n_layers=depth)
+    for g in lm_layer_gemms(cfg, batch_n * seq):
+        check_gemm(rec, dev, gen, g.tokens, g.n, g.k, torch.bfloat16,
+                   f"{arch[:6]} train {g.name.split('_', 3)[-1]}",
+                   main_path=True)
+    heads = dict(b=batch_n, hq=cfg.n_heads, hkv=cfg.n_kv_heads, s=seq,
+                 d=cfg.hd)
+    if tuple(heads.values()) not in seen:
+        seen.add(tuple(heads.values()))
+        for dtype in (torch.bfloat16, torch.float32):
+            for window in ([cfg.window, None] if cfg.window else [None]):
+                for check in (check_fwd_lse, check_bwd):
+                    check(rec, dev, gen, dtype=dtype, window=window,
+                          main_path=dtype == torch.bfloat16, **heads)
+    backward = check_moe_backward(cfg, dev, batch_n, seq) \
+        if cfg.family == "moe" else None
+    gates = compare_config_train_paths(arch, dev)
+    required = {"matmul": None, "flash_attention": 0, "flash_decode": 0,
+                "ssd_chunk_scan": 0,
+                **train_attention_launches(cfg, TRAIN_CONFIG_STEPS)}
+    run = train_full_depth(f"config-train {arch}", arch, batch_n, seq,
+                           TRAIN_CONFIG_STEPS, required, n_layers=depth,
+                           peak_gib=TRAIN_PEAK_GIB)
+    prof = profile_train_step(cfg, dev, batch_n, seq, 1)
+    return dict(gates=gates, dispatch_backward=backward, profile=prof, **run)
 
 
 def main() -> None:
@@ -2242,6 +2505,15 @@ def main() -> None:
         print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s: "
               f"{encdec_vlm_train[arch]['ms_per_step']:.1f} ms a step",
               flush=True)
+
+    # phase 13: the MoE family and the other dense configs trained at full
+    # width and reduced depth, one after another
+    train_configs, seen = {}, set()
+    for arch in TRAIN_CONFIGS:
+        train_configs[arch] = train_config(rec, dev, gen, arch, seen)
+        print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s: "
+              f"{train_configs[arch]['ms_per_step']:.1f} ms a step, peak "
+              f"{train_configs[arch]['peak_gib']:.2f} GiB", flush=True)
     print(f"[profile] device_ms windows over the run: "
           f"{DEVICE_WINDOWS['taken']}, of which {DEVICE_WINDOWS['late']} "
           f"taken again as the host fell behind; spin at the end "
@@ -2259,7 +2531,8 @@ def main() -> None:
         r["launches"] for r in (*ssm.values(), *ssm_train.values(),
                                 *dense.values(), *moes.values(),
                                 *encdec_vlm.values(),
-                                *encdec_vlm_train.values())]
+                                *encdec_vlm_train.values(),
+                                *train_configs.values())]
     launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     kernels = []
     for name, meta in KERNELS.items():
@@ -2302,7 +2575,7 @@ def main() -> None:
             profile=train_prof),
         ssd=ssd, ssm=ssm, ssm_train=ssm_train, dense=dense, moe=moes,
         encdec_vlm=encdec_vlm, encdec_vlm_train=encdec_vlm_train,
-        launches=launches,
+        train_configs=train_configs, launches=launches,
         device_windows=dict(DEVICE_WINDOWS),
         profiler_windows=dict(PROFILER_WINDOWS),
         cases=rec.cases)

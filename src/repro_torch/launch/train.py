@@ -6,12 +6,19 @@ step with microbatch accumulation -> synthetic data -> fault-tolerant loop
 ``--device cuda`` unless asked otherwise; ``--attn kernel`` sends attention
 forward and backward through the Hopper kernels (``--attn plain``: plain
 PyTorch under autograd); every arch trains, the SSM archs through the SSD
-kernel's autograd Function, whisper-base and paligemma-3b on the stub
-frontend's ``frames`` or ``patches``, which ``SyntheticLM`` draws beside
-each batch from the model's ``extra_inputs``, as the reference's
-``launch.train`` draws them.  ``--smoke`` takes the reduced config, which
-runs on the CPU.  ``--ckpt-every 0`` writes no checkpoint.  AdamW updates
-its moments in place (``adamw(..., inplace=True)``).  Before training it
+kernel's autograd Function, the MoE archs through the sort-based
+dispatch, whisper-base and paligemma-3b on the stub frontend's ``frames``
+or ``patches``, which ``SyntheticLM`` draws beside each batch from the
+model's ``extra_inputs``, as the reference's ``launch.train`` draws them.
+``--smoke`` takes the reduced config, which runs on the CPU.
+``--n-layers N`` trains N layers at the arch's full width (0: all), as
+``launch.serve`` serves them: a config whose whole depth does not fit one
+card trains cut, until the distribution slice.  It refuses an N that keeps
+no layer past deepseek's leading dense one, one that splits the arch's
+layer groups (gemma3's 5 local + 1 global, zamba2's mamba layers between
+uses of its shared block), and whisper, whose encoder it would not cut.
+``--ckpt-every 0`` writes no checkpoint.  AdamW updates its moments in
+place (``adamw(..., inplace=True)``).  Before training it
 prints ``launch.layers.layer_report`` at ``global_batch x seq_len`` tokens
 (the model's block GEMMs through the Covenant-tiled GEMM kernel;
 ``--accel-target none`` skips it).  The reference's ``--multi-pod`` and
@@ -46,6 +53,31 @@ def kernel_launches() -> dict[str, int]:
             "ssd_chunk_scan": ssd_chunk_scan.launches}
 
 
+def cut_depth(ap: argparse.ArgumentParser, cfg, n_layers: int):
+    """``cfg`` at ``n_layers`` layers, or ``ap.error`` where that depth
+    cannot be cut."""
+    if cfg.family == "audio":
+        ap.error(f"--n-layers does not cut {cfg.name}'s "
+                 f"{cfg.enc_layers}-layer encoder; train it at full depth")
+    if n_layers <= cfg.first_dense:
+        ap.error(f"--n-layers must exceed {cfg.name}'s {cfg.first_dense} "
+                 f"leading dense layers")
+    cut = cfg.replace(n_layers=n_layers)
+    try:
+        cut.layer_groups()
+    except AssertionError:
+        ap.error(f"--n-layers {n_layers} splits {cfg.name}'s groups of "
+                 f"{cfg.layer_groups()[1]} layers after its "
+                 f"{cfg.first_dense} dense ones")
+    return cut
+
+
+def fresh_state(model, opt, seed: int) -> tuple[dict, dict]:
+    """(params drawn from ``seed``, the optimizer's first state)."""
+    params = model.init_params(seed)
+    return params, opt.init(params)
+
+
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list(configs.ARCHS))
@@ -68,18 +100,22 @@ def main(argv: list[str] | None = None) -> dict:
                          "it)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--attn", choices=("kernel", "plain"), default="kernel")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="train this many layers at full width (0: all)")
     args = ap.parse_args(argv)
 
     cfg = configs.get_config(args.arch, smoke=args.smoke)
+    if args.n_layers:
+        cfg = cut_depth(ap, cfg, args.n_layers)
     tokens = args.global_batch * args.seq_len
     before = kernel_launches()
     if args.accel_target != "none":
         print(layer_report(cfg, tokens=tokens, device=args.device,
                            seed=args.seed))
     model = get_model(cfg, device=args.device, attn=args.attn)
-    print(f"[train] {cfg.name} on {args.device} (attn={args.attn}), "
-          f"batch {args.global_batch} x {args.seq_len} in "
-          f"{args.microbatches} microbatches")
+    print(f"[train] {cfg.name} ({cfg.n_layers} layers) on {args.device} "
+          f"(attn={args.attn}), batch {args.global_batch} x "
+          f"{args.seq_len} in {args.microbatches} microbatches")
 
     # the loop owns the optimizer state and rolls back from checkpoints, so
     # the moments update in place (a second copy does not fit at 2.7B)
@@ -87,8 +123,6 @@ def main(argv: list[str] | None = None) -> dict:
                 inplace=True)
     if args.compress_grads:
         opt = int8_compressed(opt, cfg)
-    params = model.init_params(args.seed)
-    opt_state = opt.init(params)
     step_fn = make_train_step(model.loss_fn, opt,
                               microbatches=args.microbatches)
     data = SyntheticLM(vocab=cfg.vocab, seq_len=args.seq_len,
@@ -96,14 +130,18 @@ def main(argv: list[str] | None = None) -> dict:
                        extras=model.extra_inputs)
 
     t0 = time.perf_counter()
+    # the first state goes to the loop with no name here, so the loop can
+    # free it once a step has replaced it
     params, opt_state, report = train_loop(
-        step_fn, params, opt_state, data.batch, cfg=cfg, steps=args.steps,
-        ckpt_dir=f"{args.ckpt_dir}/{cfg.name}", ckpt_every=args.ckpt_every)
+        step_fn, *fresh_state(model, opt, args.seed), data.batch, cfg=cfg,
+        steps=args.steps, ckpt_dir=f"{args.ckpt_dir}/{cfg.name}",
+        ckpt_every=args.ckpt_every)
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in kernel_launches().items()}
-    stats = {"report": report, "seconds": seconds, "launches": launches}
+    stats = {"report": report, "seconds": seconds, "launches": launches,
+             "n_layers": cfg.n_layers}
     steady = report.step_seconds[1:] or report.step_seconds
     if steady:
         stats["ms_per_step"] = 1e3 * sum(steady) / len(steady)

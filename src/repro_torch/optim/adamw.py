@@ -12,6 +12,16 @@ updates the f32 moments in place instead and returns them, for a caller
 that owns its state and rolls back from checkpoints (``launch.train``): at
 2.7B parameters a second copy of the moments (21.6 GB) does not fit an
 80 GB card beside the rest of a train step.
+
+The norm, the clip and the update run over each leaf a slice of its
+leading dimension at a time (``SLICE_ELEMS``), so no f32 temporary is
+larger than a slice, whatever the leaf: command-r-plus-104b's tied
+embedding is one leaf of 3.1 B parameters, 12.6 GB in f32.  The clip and
+the update are elementwise, so the slices change no value; the update
+clips each slice of a gradient as it reads it, rounding it to the
+gradient's dtype as ``clip_by_global_norm`` does, and makes no clipped
+copy of the tree.  ``global_norm`` sums each slice's squares in f32 and
+then the slices', which may move its last bits against one sum per leaf.
 """
 from __future__ import annotations
 
@@ -24,18 +34,46 @@ import torch
 from ..tree import tree_leaves, tree_map, tree_map_with_path, tree_pick
 
 _F32 = torch.float32
+# the most elements of a leaf that one step of the norm, the clip or the
+# update takes at once: 256 MB of f32 a temporary
+SLICE_ELEMS = 1 << 26
+
+
+def leaf_slices(*leaves: torch.Tensor):
+    """Views of same-shaped ``leaves``, slice by slice of the leading
+    dimension, each slice at most ``SLICE_ELEMS`` elements (at least one
+    row); a leaf that fits, or a scalar, is one slice."""
+    x = leaves[0]
+    if x.ndim == 0 or x.numel() <= SLICE_ELEMS:
+        return [leaves]
+    rows = max(1, SLICE_ELEMS * x.shape[0] // x.numel())
+    return zip(*(leaf.split(rows) for leaf in leaves))
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(_F32)))
+    return torch.sqrt(sum(sum(torch.sum(torch.square(s.to(_F32)))
+                              for s, in leaf_slices(leaf))
                           for leaf in tree_leaves(tree)))
+
+
+def _clip_scale(g: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return (g.to(_F32) * scale).to(g.dtype)
 
 
 def clip_by_global_norm(tree, max_norm: float):
     g = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
-    return tree_map(lambda leaf: (leaf.to(_F32) * scale).to(leaf.dtype),
-                    tree), g
+    scale = _clip_scale(g, max_norm)
+
+    def clip(leaf):
+        out = torch.empty_like(leaf)
+        for s, o in leaf_slices(leaf, out):
+            o.copy_(_clipped(s, scale))
+        return out
+    return tree_map(clip, tree), g
 
 
 def _f32(step) -> torch.Tensor:
@@ -91,26 +129,32 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
     @torch.no_grad()
     def update(grads, state, params):
         step = state["step"] + 1
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        gnorm = global_norm(grads)
+        scale = _clip_scale(gnorm, max_grad_norm)
         t = step.to(_F32)
         b1c = 1 - torch.tensor(b1, dtype=_F32, device=t.device) ** t
         b2c = 1 - torch.tensor(b2, dtype=_F32, device=t.device) ** t
         lr_t = lr_fn(step).to(t.device)
 
         def upd(path, g, m, v, p):
-            gf = g.to(_F32)
-            if inplace:  # rounded as the expressions below are
-                m2 = m.mul_(b1).add_((1 - b1) * gf)
-                v2 = v.mul_(b2).add_((1 - b2) * torch.square(gf))
-            else:
-                m2 = b1 * m + (1 - b1) * gf
-                v2 = b2 * v + (1 - b2) * torch.square(gf)
-            mhat = m2 / b1c
-            vhat = v2 / b2c
-            delta = mhat / (torch.sqrt(vhat) + eps)
-            if _ref_ndim(path, p) >= 2:  # decay matrices only
-                delta = delta + weight_decay * p.to(_F32)
-            return (p.to(_F32) - lr_t * delta).to(p.dtype), m2, v2
+            decay = _ref_ndim(path, p) >= 2  # decay matrices only
+            new_p = torch.empty_like(p)
+            m2, v2 = (m, v) if inplace else (torch.empty_like(m),
+                                             torch.empty_like(v))
+            slices = leaf_slices(g, m, v, p, new_p, m2, v2)
+            for gs, ms, vs, ps, ps2, ms2, vs2 in slices:
+                gf = _clipped(gs, scale).to(_F32)
+                if inplace:  # rounded as the expressions below are
+                    ms.mul_(b1).add_((1 - b1) * gf)
+                    vs.mul_(b2).add_((1 - b2) * torch.square(gf))
+                else:
+                    ms2.copy_(b1 * ms + (1 - b1) * gf)
+                    vs2.copy_(b2 * vs + (1 - b2) * torch.square(gf))
+                delta = (ms2 / b1c) / (torch.sqrt(vs2 / b2c) + eps)
+                if decay:
+                    delta = delta + weight_decay * ps.to(_F32)
+                ps2.copy_((ps.to(_F32) - lr_t * delta).to(p.dtype))
+            return new_p, m2, v2
 
         out = tree_map_with_path(upd, grads, state["mu"], state["nu"], params)
         new_state = {"mu": tree_pick(out, 1), "nu": tree_pick(out, 2),
@@ -121,5 +165,5 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
     return Optimizer(init, update)
 
 
-__all__ = ["Optimizer", "adamw", "clip_by_global_norm", "cosine_schedule",
-           "global_norm", "linear_schedule"]
+__all__ = ["Optimizer", "SLICE_ELEMS", "adamw", "clip_by_global_norm",
+           "cosine_schedule", "global_norm", "leaf_slices", "linear_schedule"]

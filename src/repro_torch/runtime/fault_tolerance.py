@@ -92,10 +92,14 @@ def train_loop(train_step: Callable, params, opt_state, data_iter,
     ``data_iter(step) -> batch`` must be random-access (resumable); ``cfg``
     gives the checkpoints their reference layout.  ``ckpt_every`` 0 writes
     no checkpoint (a run too large to save, timed or checked once); a
-    non-finite loss then raises, with nothing to roll back to.  Returns
-    (params, opt_state, LoopReport)."""
+    non-finite loss then raises, with nothing to roll back to.  The loop
+    keeps no reference to the ``params`` and ``opt_state`` it was given
+    once a step has replaced them, so a caller that keeps none either
+    frees them (at full width on one card, a second bf16 copy of the
+    params takes 5-9 GB).  Returns (params, opt_state, LoopReport)."""
     report = LoopReport()
     state = {"params": params, "opt": opt_state}
+    del params, opt_state
 
     start = 0
     latest = ckpt.latest_step(ckpt_dir)

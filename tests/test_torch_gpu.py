@@ -1478,3 +1478,98 @@ def test_encdec_vlm_train_cli_smoke_on_card(cuda, arch, tmp_path):
     assert all(np.isfinite(out["report"].losses))
     assert out["launches"]["flash_attention_fwd_lse"] == 2 * 3 * per
     assert out["launches"]["flash_attention_bwd"] == 3 * per
+
+
+# ---------------------------------------------------------------------------
+# training the MoE family and the other dense configs: the MoE dispatch's
+# backward, the backward at stablelm's and command-r's heads, the train CLI
+# ---------------------------------------------------------------------------
+
+
+def moe_layer_grads(cfg, p, x, w):
+    """The gradient of ``sum(moe_ffn(x) * w)`` for x and every leaf of one
+    MoE layer's params ``p``, in the order (x, *leaves)."""
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_leaves, tree_map
+
+    p = tree_map(lambda t: t.detach().requires_grad_(True), p)
+    x = x.detach().requires_grad_(True)
+    out = moe.moe_ffn(cfg, p, x)
+    return torch.autograd.grad((out.float() * w).sum(), [x, *tree_leaves(p)])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "olmoe-1b-7b"])
+def test_moe_layer_backward_bit_equal_on_card(cuda, arch, dtype):
+    """One MoE layer at full width, 2 x 512 tokens that crowd a few experts
+    past their capacity: the gradient of x and of every weight (router,
+    experts, deepseek's shared experts) is bit-equal on two card runs, and
+    in f32 within 1e-4 relative L2 of the CPU's.  Each token is gathered
+    once per top-k choice, so the backward sums k gradients a token."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch).replace(param_dtype=dtype, compute_dtype=dtype)
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe_ffn(cfg, gen)
+    x = (torch.randn((2, 512, cfg.d_model), generator=gen) + 0.25 *
+         torch.randn((cfg.d_model,), generator=gen)).to(getattr(torch, dtype))
+    w = torch.randn((2, 512, cfg.d_model), generator=gen)
+    kept = moe.kept_assignments(cfg, p, x)
+    assert int(kept.sum()) < 1024 * cfg.top_k      # some were dropped
+    pd = tree_map(lambda a: a.to(cuda), p)
+    got = moe_layer_grads(cfg, pd, x.to(cuda), w.to(cuda))
+    again = moe_layer_grads(cfg, pd, x.to(cuda), w.to(cuda))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    if dtype == "float32":
+        want = moe_layer_grads(cfg, p, x, w)
+        for a, b in zip(got, want):
+            rel = float((a.cpu() - b).norm() / b.norm())
+            assert rel <= 1e-4, rel
+
+
+# stablelm-12b's 32 q heads over 8 kv heads of 160 (group 4) and
+# command-r-plus-104b's 96 over 8 of 128 (group 12), with a ragged edge
+BWD_GROUP_CASES = [(32, 8, 160), (96, 8, 128)]
+
+
+@pytest.mark.parametrize("hq,hkv,d", BWD_GROUP_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_train_config_heads_on_card(cuda, hq, hkv, d, dtype):
+    """The backward at stablelm's and command-r's heads over 300 causal
+    tokens, with the tiler's blocks: against the plain version at 2e-2 /
+    2e-3 and ``REL_L2`` on each of dq, dk, dv (dk, dv summed over the
+    group without atomics), bit-equal."""
+    from repro_torch.kernels.tiling import (attention_bwd_blocks,
+                                            attention_bwd_mma_blocks)
+
+    inputs, kw, want = _bwd_case(cuda, 1, hq, hkv, 300, 300, d, dtype)
+    pick = attention_bwd_mma_blocks if dtype == torch.bfloat16 \
+        else attention_bwd_blocks
+    _hold_bwd(inputs, kw, want, pick(300, 300, d, heads=hq), dtype)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "olmoe-1b-7b",
+                                  "gemma3-12b", "stablelm-12b",
+                                  "command-r-plus-104b"])
+def test_train_configs_cli_smoke_on_card(cuda, arch, tmp_path):
+    """``launch.train --smoke`` of the MoE family and the other dense
+    configs on the card: finite losses, the LSE forward launched twice an
+    attention and step (remat) and the backward once, no other attention
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    per = get_config(arch, smoke=True).n_layers
+    out = train.main(["--arch", arch, "--smoke", "--device", "cuda",
+                      "--seq-len", "24", "--global-batch", "2", "--steps",
+                      "3", "--ckpt-dir", str(tmp_path), "--ckpt-every", "0",
+                      "--accel-target", "none"])
+    assert out["report"].steps_run == 3
+    assert all(np.isfinite(out["report"].losses))
+    assert out["launches"]["flash_attention_fwd_lse"] == 2 * 3 * per
+    assert out["launches"]["flash_attention_bwd"] == 3 * per
+    assert out["launches"]["flash_attention"] == 0
+    assert out["launches"]["flash_decode"] == 0

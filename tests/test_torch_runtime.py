@@ -10,8 +10,11 @@ on params that move by ~1e-3 a step); losses and accumulated grads within
 the f32 model bound of ``tests/test_torch_models.py``; the loop tests are
 the port's versions of ``tests/test_runtime.py``'s.
 """
+import gc
+import importlib
 import os
 import tempfile
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -193,6 +196,54 @@ def test_adamw_keeps_the_reference_dtypes():
     assert new["embed"]["tokens"].dtype == torch.bfloat16
     assert new["embed"]["tokens"][0, 0] == torch.tensor(0.95).bfloat16()
     assert float(new["ln_f"]["scale"][0]) == 1.0
+
+
+SLICED = 1000   # SLICE_ELEMS for the tests: SMOKE's embedding in 15-row slices
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_slices_change_no_value(smoke, monkeypatch, dtype, inplace):
+    """The clip and two updates over leaves cut into slices of ``SLICED``
+    elements give params, moments and clipped grads bit-equal to one slice
+    a leaf.  The norm is held at 3.7 on both sides, so the clip bites and
+    only the slicing differs."""
+    mod = importlib.import_module("repro_torch.optim.adamw")
+    _, _, _, params, _, _, grads = smoke
+    params, grads = (tree_map(lambda t: t.to(dtype), x)
+                     for x in (params, grads))
+    assert max(t.numel() for _, t in tree_paths(params)) > 8 * SLICED
+    monkeypatch.setattr(mod, "global_norm", lambda tree: torch.tensor(3.7))
+    out = []
+    for elems in (mod.SLICE_ELEMS, SLICED):
+        monkeypatch.setattr(mod, "SLICE_ELEMS", elems)
+        opt = adamw(1e-3, inplace=inplace)
+        p, state = params, opt.init(params)
+        for _ in range(2):
+            p, state, _ = opt.update(grads, state, p)
+        out.append((p, state["mu"], state["nu"],
+                    mod.clip_by_global_norm(grads, 1.0)[0]))
+    for tree_a, tree_b in zip(*out):
+        for (path, a), (_, b) in zip(tree_paths(tree_a), tree_paths(tree_b)):
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
+def test_sliced_global_norm_and_clip_equal_reference(smoke, monkeypatch):
+    """``global_norm`` and ``clip_by_global_norm`` over slices of ``SLICED``
+    elements against the reference's, within
+    ``test_global_norm_and_clip_equal_reference``'s bounds."""
+    from repro.optim import clip_by_global_norm as ref_clip
+    from repro.optim import global_norm as ref_norm
+
+    monkeypatch.setattr(importlib.import_module("repro_torch.optim.adamw"),
+                        "SLICE_ELEMS", SLICED)
+    cfg, _, _, _, _, jgrads, grads = smoke
+    np.testing.assert_allclose(float(global_norm(grads)),
+                               float(ref_norm(jgrads)), rtol=1e-6)
+    clipped, g = clip_by_global_norm(grads, 0.5)
+    jclipped, jg = ref_clip(jgrads, 0.5)
+    np.testing.assert_allclose(float(g), float(jg), rtol=1e-6)
+    assert_tree_close(cfg, clipped, jclipped, atol=1e-7, rtol=1e-6)
 
 
 def test_int8_compressed_update_equals_reference(smoke):
@@ -408,6 +459,34 @@ def test_loop_without_checkpoints(tiny_setup):
             train_loop(step_fn, params, opt_state, data.batch, cfg=cfg,
                        steps=2, ckpt_dir=d, ckpt_every=0, inject_nan_at=1,
                        logger=lambda *a: None)
+
+
+def test_loop_lets_go_of_the_first_state(tiny_setup):
+    """Once a step has replaced them, the loop holds no reference to the
+    params and optimizer state it was given: a caller that keeps none sees
+    them freed (at full width on one card a second copy of the params
+    takes 5-9 GB)."""
+    cfg, params, _, _, data = tiny_setup
+    opt = adamw(1e-3)        # functional: each step makes new tensors
+    step_fn = make_train_step(get_model(cfg, device="cpu").loss_fn, opt)
+    refs, alive = [], []
+
+    def fresh():
+        p = tree_map(torch.clone, params)
+        state = opt.init(p)
+        refs.extend(weakref.ref(t) for tree in (p, state)
+                    for _, t in tree_paths(tree))
+        return p, state
+
+    def step(p, o, batch):
+        gc.collect()
+        alive.append(sum(r() is not None for r in refs))
+        return step_fn(p, o, batch)
+
+    with tempfile.TemporaryDirectory() as d:
+        train_loop(step, *fresh(), data.batch, cfg=cfg, steps=3, ckpt_dir=d,
+                   ckpt_every=0, logger=lambda *a: None)
+    assert alive == [len(refs), 0, 0]
 
 
 def test_loop_resumes_from_a_reference_run(smoke, tiny_setup):
