@@ -18,8 +18,9 @@
    on two runs, and every attention kernel (the forward with and without
    the LSE, the decode, each of the backward's dq, dk and dv) must also
    come within a relative L2 of its plain version (``ATTN_REL_L2``);
-3. serve: drives ``repro_torch.launch.serve``: the Covenant GEMM report of
-   the model's block GEMMs, then full-width qwen3-0.6b with seeded random
+3. serve: drives ``repro_torch.launch.serve``: the Covenant report of the
+   model's block GEMMs against ``h100`` (cycles, predicted ms and
+   ``covenant_matmul``'s time), then full-width qwen3-0.6b with seeded random
    bf16 weights serving 8 requests (batch 4, prompt 512, 32 new tokens)
    with ``--attn kernel``, every launch counter set to 0 just before and
    read just after; then compares the kernel path with the plain path on
@@ -134,7 +135,18 @@
    forward and the backward exactly ``train_attention_launches`` times,
    none of the other attention and SSD kernels, the peak device memory at
    most 70 GiB; and one profiled train step each;
-14. prints the count of ``device_ms`` windows taken again as the host
+14. the Covenant compiler on the card: compiles each of the ten configs'
+   block GEMMs at full width against ``h100`` (``repro_torch.compile``) at
+   the decode batch of its serve phase and the tokens a step of its train
+   phase, as the reference's i8 codelets and as bf16 ones, into a fresh
+   disk store; prints per GEMM the cycles, the covenant's predicted ms,
+   the device time of ``covenant_matmul`` and of ``torch.matmul`` in bf16
+   and the bound; runs ``launch.serve`` for full-width qwen3-0.6b with
+   ``--accel-target hvx --accel-search`` and with ``--accel-target
+   dnnweaver@pe=32x32`` (exit 0, ``block total`` printed, flash attention
+   and flash decode launched); and replays every compile from
+   the store in a child process, which must run no pipeline stage;
+15. prints the count of ``device_ms`` windows taken again as the host
    fell behind and of profiler windows that lost records, and what they
    left (``launch.layers.DEVICE_WINDOWS``, ``PROFILER_WINDOWS``), a
    ``kernels`` JSON line (six kernels, launches summed over every path)
@@ -144,6 +156,7 @@
 Every phase raises on failure; there is no CPU fallback.
 """
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -158,6 +171,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+import repro_torch  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
@@ -174,8 +188,8 @@ from repro_torch.kernels.tiling import (  # noqa: E402
     attention_mma_blocks, decode_block_kv, gemm_blocks, ssd_mma_blocks)
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.layers import (  # noqa: E402
-    DEVICE_WINDOWS, PROFILER_WINDOWS, device_ms, lm_layer_gemms, mean_ms,
-    profile_window)
+    DEVICE_WINDOWS, PROFILER_WINDOWS, compile_layer_gemms, device_ms,
+    lm_layer_gemms, mean_ms, predicted_ms, profile_window)
 from repro_torch.models import get_model, moe  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.adamw import leaf_slices  # noqa: E402
@@ -349,6 +363,40 @@ TRAIN_CONFIGS = {"olmoe-1b-7b": (8, 2, 2048, 2, 2, 2048),
                  "command-r-plus-104b": (1, 1, 2048, 1, 1, 1024)}
 TRAIN_CONFIG_STEPS = 3
 TRAIN_PEAK_GIB = 70.0   # the most device memory a phase-13 run may take
+# phase 14, the Covenant compiler on the card: each config's block GEMMs
+# at full width, compiled against ``h100`` at the decode batch of its serve
+# phase and the tokens a step of its train phase (the rows its layer
+# reports take), timed through ``covenant_matmul`` in bf16 beside the
+# covenant's prediction; then ``launch.serve`` against other covenants,
+# and the compiles replayed from a disk store in a child process
+COVENANT_TOKENS = {
+    ARCH: (BATCH, TRAIN_BATCH * TRAIN_SEQ),
+    **{a: (BATCH, SSM_TRAIN_BATCH * SSM_TRAIN_SEQ) for a in SSM_ARCHS},
+    **{a: (BATCH, TRAIN_CONFIGS[a][1] * TRAIN_CONFIGS[a][2])
+       for a in (*DENSE_ARCHS, *MOE_ARCHS)},
+    **{a: (ENCDEC_VLM[a][0],
+           ENCDEC_VLM_TRAIN[a][0] * ENCDEC_VLM_TRAIN[a][1])
+       for a in ENCDEC_VLM},
+}
+COVENANT_CLI = (["--accel-target", "hvx", "--accel-search"],
+                ["--accel-target", "dnnweaver@pe=32x32"])
+COVENANT_STORE = ROOT / "build" / "covenant_store"
+# the child that replays phase 14's compiles from the store: argv[1] is
+# the JSON list of (arch, tokens); prints, for every artifact in order,
+# its cycles and the pipeline stages it ran, and the driver's counts
+COVENANT_REPLAY = '''
+import json, sys
+import repro_torch
+from repro_torch import configs
+from repro_torch.launch.layers import compile_layer_gemms
+arts = []
+for arch, tokens in json.loads(sys.argv[1]):
+    for g, art in compile_layer_gemms(configs.get_config(arch), tokens):
+        arts += [art, repro_torch.compile(g.build("bf16", "f32"), "h100")]
+print(json.dumps({"cycles": [a.cycles() for a in arts],
+                  "executed": [a.ctx.executed for a in arts],
+                  "stats": repro_torch.cache_stats()}))
+'''
 
 
 def bound(ops_count: float, peak: float, nbytes: float) -> tuple[float, str]:
@@ -2328,6 +2376,119 @@ def train_config(rec: Record, dev, gen, arch: str, seen: set) -> dict:
     return dict(gates=gates, dispatch_backward=backward, profile=prof, **run)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the Covenant compiler on the card
+# ---------------------------------------------------------------------------
+
+
+def covenant_on_card(dev, gen, smi: str) -> dict:
+    """Phase 14.  Compiles every config's block GEMMs at full width
+    against ``h100`` (``COVENANT_TOKENS``) into a fresh disk store: the
+    reference's i8 codelets, which its layer report prints, and bf16 ones;
+    prints per GEMM the cycles of both, the covenant's predicted ms
+    (``predicted_ms``), the device time of ``covenant_matmul`` and of
+    ``torch.matmul`` on bf16 operands, and the bound.  Then runs
+    ``launch.serve`` for full-width qwen3-0.6b against each of
+    ``COVENANT_CLI`` (exit 0, ``block total`` printed, its launch counts
+    read from a fresh process), and replays every compile in a child
+    process from the store: no pipeline stage may run.  The predicted
+    against measured ratio is printed, not gated."""
+    shutil.rmtree(COVENANT_STORE, ignore_errors=True)
+    repro_torch.clear_cache()
+    opts = repro_torch.CompileOptions(store=str(COVENANT_STORE))
+    rows, timed, cycles = [], {}, []
+    for arch, token_counts in COVENANT_TOKENS.items():
+        cfg = configs.get_config(arch)
+        tag = cfg.name.replace(".", "_").replace("-", "_") + "_"
+        for tokens in token_counts:
+            for g, art in compile_layer_gemms(cfg, tokens, options=opts):
+                bf = repro_torch.compile(g.build("bf16", "f32"), "h100",
+                                         opts)
+                cyc, cyc_bf = art.cycles(), bf.cycles()
+                cycles += [cyc, cyc_bf]
+                if not (cyc > 0 and cyc_bf > 0):
+                    raise AssertionError(f"covenant {arch} {g.name}: "
+                                         f"cycles {cyc}, {cyc_bf}")
+                shape = (g.tokens, g.n, g.k)
+                if shape not in timed:
+                    a = torch.randn((g.tokens, g.k), generator=gen,
+                                    device=dev).to(torch.bfloat16)
+                    b = torch.randn((g.k, g.n), generator=gen,
+                                    device=dev).to(torch.bfloat16)
+                    flops = 2.0 * g.tokens * g.n * g.k
+                    calls = 3 if flops > 1e11 else 20
+                    timed[shape] = (
+                        device_ms(lambda: ops.covenant_matmul(a, b),
+                                  calls=calls),
+                        device_ms(lambda: torch.matmul(a, b), calls=calls),
+                        *bound(flops, H100["peak_bf16_flops"],
+                               (g.tokens * g.k + g.k * g.n) * 2
+                               + g.tokens * g.n * 4))
+                    del a, b
+                dev_ms, lib_ms, b_ms, b_by = timed[shape]
+                row = dict(arch=arch, tokens=tokens, gemm=g.name,
+                           shape="x".join(map(str, shape)), cycles_i8=cyc,
+                           cycles_bf16=cyc_bf,
+                           predicted_ms_i8=predicted_ms(cyc),
+                           predicted_ms_bf16=predicted_ms(cyc_bf),
+                           device_ms=dev_ms, torch_device_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by)
+                rows.append(row)
+                print(f"[covenant] {arch:19s} tokens={tokens:<5d} "
+                      f"{g.name.removeprefix(tag):8s} {row['shape']:17s} "
+                      f"i8 {cyc:.0f} cyc {row['predicted_ms_i8']:.4f} ms, "
+                      f"bf16 {cyc_bf:.0f} cyc "
+                      f"{row['predicted_ms_bf16']:.4f} ms; covenant_matmul "
+                      f"device_ms={dev_ms:.4f} torch.matmul "
+                      f"device_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
+                      f"({b_by}); predicted/measured "
+                      f"{row['predicted_ms_bf16'] / dev_ms:.3g}; {smi}",
+                      flush=True)
+    torch.cuda.empty_cache()
+
+    cli = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for extra in COVENANT_CLI:
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             ARCH, "--requests", "4", "--max-new", "8", "--seed", "0",
+             "--device", "cuda", *extra], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
+        print(out.stdout, end="", flush=True)
+        if out.returncode != 0 or "block total" not in out.stdout:
+            raise AssertionError(f"launch.serve {extra}: exit "
+                                 f"{out.returncode}\n{out.stderr[-3000:]}")
+        counts = re.search(r"\[serve\] kernel launches: (.*)", out.stdout)
+        launches = {k: int(v) for k, v in
+                    (kv.split("=") for kv in counts.group(1).split())}
+        # the model's GEMMs are torch's; only an h100 report launches the
+        # GEMM kernel
+        if any(launches[k] <= 0 for k in ("flash_attention",
+                                          "flash_decode")):
+            raise AssertionError(f"launch.serve {extra}: launches "
+                                 f"{launches}")
+        cli.append(dict(args=extra, launches=launches))
+
+    work = [(arch, t) for arch, ts in COVENANT_TOKENS.items() for t in ts]
+    out = subprocess.run(
+        [sys.executable, "-c", COVENANT_REPLAY, json.dumps(work)], cwd=ROOT,
+        env=dict(env, REPRO_TORCH_CACHE_DIR=str(COVENANT_STORE)),
+        capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"store replay: exit {out.returncode}\n"
+                             f"{out.stderr[-3000:]}")
+    replay = json.loads(out.stdout.strip().splitlines()[-1])
+    stats = replay["stats"]
+    print(f"[covenant] store replay in a child process: {len(cycles)} "
+          f"artifacts, driver counts {stats}", flush=True)
+    if any(replay["executed"]) or stats["store_hits"] <= 0 \
+            or stats["store_misses"] or replay["cycles"] != cycles:
+        raise AssertionError(f"store replay ran stages or missed: {stats}, "
+                             f"stages run {replay['executed']}")
+    shutil.rmtree(COVENANT_STORE, ignore_errors=True)
+    return dict(gemms=rows, cli=cli, replay=stats)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card; the port runs on the "
@@ -2514,6 +2675,11 @@ def main() -> None:
         print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s: "
               f"{train_configs[arch]['ms_per_step']:.1f} ms a step, peak "
               f"{train_configs[arch]['peak_gib']:.2f} GiB", flush=True)
+
+    # phase 14: the Covenant compiler on the card
+    covenant = covenant_on_card(dev, gen, smi)
+    print(f"[phase] covenant compiler done at {time.perf_counter() - t0:.1f}"
+          f"s", flush=True)
     print(f"[profile] device_ms windows over the run: "
           f"{DEVICE_WINDOWS['taken']}, of which {DEVICE_WINDOWS['late']} "
           f"taken again as the host fell behind; spin at the end "
@@ -2532,7 +2698,7 @@ def main() -> None:
                                 *dense.values(), *moes.values(),
                                 *encdec_vlm.values(),
                                 *encdec_vlm_train.values(),
-                                *train_configs.values())]
+                                *train_configs.values(), *covenant["cli"])]
     launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     kernels = []
     for name, meta in KERNELS.items():
@@ -2575,7 +2741,7 @@ def main() -> None:
             profile=train_prof),
         ssd=ssd, ssm=ssm, ssm_train=ssm_train, dense=dense, moe=moes,
         encdec_vlm=encdec_vlm, encdec_vlm_train=encdec_vlm_train,
-        train_configs=train_configs, launches=launches,
+        train_configs=train_configs, covenant=covenant, launches=launches,
         device_windows=dict(DEVICE_WINDOWS),
         profiler_windows=dict(PROFILER_WINDOWS),
         cases=rec.cases)

@@ -1,8 +1,5 @@
 """Architecture Covenant Graph (ACG) — the paper's §2 abstraction.
 
-A trimmed copy of ``repro.core.acg``: the graph, nodes, edges and mnemonic
-definitions that the tiler and ``spec.build_acg`` need, with the same logic.
-
 An ACG is a directed graph whose vertices are *programmable* architecture
 components and whose edges are programmable interconnect:
 
@@ -22,10 +19,13 @@ an ordered list of fixed-width fields (``ifield`` constants / ``efield``
 enumerations).  They are attributes of the ACG, *not* of any execution model,
 which is what lets the same code-generation machinery retarget accelerators
 with systolic, dataflow or VLIW semantics.
+
+The port's copy of ``repro.core.acg``, with the same logic.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Iterable, Mapping, Sequence
 
@@ -234,6 +234,37 @@ class MnemonicDef:
         raise KeyError(f"mnemonic {self.name} has no field {name!r}")
 
 
+@dataclasses.dataclass
+class Mnemonic:
+    """A mnemonic *instance*: a MnemonicDef with concrete field values."""
+
+    mdef: MnemonicDef
+    values: dict[str, object]
+    # node occupied while executing (for packing + cycle model)
+    node: str | None = None
+    cycles: int = 1
+
+    def encode(self) -> int:
+        word = self.mdef.opcode & 0xFF
+        for f in self.mdef.fields:
+            word = (word << f.bits) | f.encode(self.values[f.name])
+        return word
+
+    def reads(self) -> set[tuple[str, object]]:
+        return {
+            (f.name, self.values[f.name]) for f in self.mdef.fields if f.rw == "r"
+        }
+
+    def writes(self) -> set[tuple[str, object]]:
+        return {
+            (f.name, self.values[f.name]) for f in self.mdef.fields if f.rw == "w"
+        }
+
+    def __str__(self) -> str:
+        args = ", ".join(f"{f.name}={self.values[f.name]}" for f in self.mdef.fields)
+        return f"{self.mdef.name} {args}"
+
+
 # ---------------------------------------------------------------------------
 # The graph itself
 # ---------------------------------------------------------------------------
@@ -269,6 +300,13 @@ class ACG:
         """Build an ACG from a declarative ``spec.ACGSpec`` (validated)."""
         from .spec import build_acg
         return build_acg(spec)
+
+    def to_spec(self):
+        """Snapshot this graph into its canonical ``spec.ACGSpec`` — the
+        round-trip partner of ``from_spec`` and the basis of the ACG
+        content fingerprint used by the compile cache and artifact store."""
+        from .spec import spec_of
+        return spec_of(self)
 
     # -- construction -------------------------------------------------------
     def add_memory(self, name: str, data_width: int, banks: int, depth: int,
@@ -375,8 +413,26 @@ class ACG:
             if isinstance(self.nodes[p], MemoryNode)
         ]
 
+    # -- pretty -------------------------------------------------------------
+    def describe(self) -> str:
+        lines = [f"ACG {self.name} (issue_slots={self.issue_slots})"]
+        for n in self.nodes.values():
+            if isinstance(n, MemoryNode):
+                lines.append(
+                    f"  mem {n.name}: data_width={n.data_width} banks={n.banks} "
+                    f"depth={n.depth} capacity={n.capacity_bytes}B"
+                )
+            else:
+                lines.append(f"  cu  {n.name} (slot={n.slot}):")
+                for c in n.capabilities:
+                    lines.append(f"      {c}")
+        for e in self.edges:
+            lines.append(f"  edge {e.src} -> {e.dst} bw={e.bandwidth}b")
+        return "\n".join(lines)
+
 
 __all__ = [
     "ACG", "Capability", "ComputeNode", "Edge", "Field", "MemoryNode",
-    "MnemonicDef", "OperandSpec", "cap", "dt", "efield", "ifield", "ospec",
+    "Mnemonic", "MnemonicDef", "OperandSpec", "cap", "dt", "efield",
+    "ifield", "ospec",
 ]

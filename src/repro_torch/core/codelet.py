@@ -1,8 +1,5 @@
 """Codelets — the paper's §3 compute-kernel abstraction.
 
-A trimmed copy of ``repro.core.codelet``: what the GEMM codelet and the
-Algorithm-1 tiler use (no transfer ops, no pretty printer), same logic.
-
 A Codelet declares parametric-shaped *surrogate variables* (``inp`` / ``out``
 / ``param``; ``local`` surrogates appear during compilation) and a body of
 ``loop`` / ``compute`` / ``transfer`` operations.  Codelets start
@@ -14,13 +11,15 @@ transfer insertion materialises data movement (Fig 8c).
 Index arithmetic is affine over loop variables (``a[mo+mi, ko+ki]``), which is
 sufficient for the paper's benchmark set (GEMM / CONV / elementwise / MLP
 layers) and keeps footprint analysis exact.
+
+The port's copy of ``repro.core.codelet``, with the same logic.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
 import math
-from typing import Iterator, Sequence
+from typing import Callable, Iterator, Sequence
 
 from .dtypes import Dtype, dt
 
@@ -180,7 +179,34 @@ class Compute:
         return f'{self.out}=compute({self.loc or "null"},"{self.capability}",{ins})'
 
 
-Op = Loop | Compute
+@dataclasses.dataclass
+class Transfer:
+    """Three paper forms:
+
+    * ``dst_loc`` set, ``alloc`` set      — move src tile to a memory node,
+      creating a new ``local`` surrogate (``x1=transfer(x[n],"MEM2",[2])``).
+    * ``src`` is a const Ref (var=="") + ``alloc``  — allocate zero-filled
+      local (``c1=transfer(i16(0),"MEM2",[2])``).
+    * ``dst`` set                          — overwrite existing surrogate
+      (``transfer(c1, c[n], [2])``).
+    """
+
+    src: Ref
+    sizes: tuple[int, ...]
+    dst_loc: str | None = None
+    dst: Ref | None = None
+    alloc: str | None = None  # name of the local surrogate created
+    fill: object = None       # const fill value for allocation form
+
+    def __str__(self) -> str:
+        if self.dst_loc is not None:
+            src = f"{self.src}" if self.src.var else f"fill({self.fill})"
+            return (f'{self.alloc}=transfer({src},"{self.dst_loc}",'
+                    f"{list(self.sizes)})")
+        return f"transfer({self.src},{self.dst},{list(self.sizes)})"
+
+
+Op = Loop | Compute | Transfer
 
 
 # ---------------------------------------------------------------------------
@@ -242,6 +268,9 @@ class Codelet:
     def computes(self) -> list[tuple[list[Loop], Compute]]:
         return [(ls, op) for ls, op in self.walk() if isinstance(op, Compute)]
 
+    def transfers(self) -> list[tuple[list[Loop], Transfer]]:
+        return [(ls, op) for ls, op in self.walk() if isinstance(op, Transfer)]
+
     def loop(self, var: str) -> Loop:
         for l in self.loops():
             if l.var == var:
@@ -253,6 +282,26 @@ class Codelet:
 
     def note(self, msg: str) -> None:
         self.schedule_notes.append(msg)
+
+    # -- pretty printer (paper syntax) ---------------------------------------
+    def __str__(self) -> str:
+        lines = [f"cdlt {self.name} {{"]
+        for s in self.surrogates.values():
+            if s.kind in ("inp", "out", "param"):
+                lines.append(f"  {s};")
+
+        def emit(ops, ind):
+            for op in ops:
+                if isinstance(op, Loop):
+                    lines.append(f"{' ' * ind}{op} {{")
+                    emit(op.body, ind + 2)
+                    lines.append(f"{' ' * ind}}}")
+                else:
+                    lines.append(f"{' ' * ind}{op};")
+
+        emit(self.body, 2)
+        lines.append("}")
+        return "\n".join(lines)
 
 
 def _shp(shape):
@@ -292,6 +341,6 @@ def ref_footprint(ref: Ref, surrogate: Surrogate, extents: dict[str, int]) -> tu
 
 
 __all__ = [
-    "Aff", "Codelet", "Compute", "Loop", "Op", "Ref", "Surrogate", "ref",
-    "ref_footprint", "v",
+    "Aff", "Codelet", "Compute", "Loop", "Op", "Ref", "Surrogate",
+    "Transfer", "ref", "ref_footprint", "v",
 ]

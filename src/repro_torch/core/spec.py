@@ -1,14 +1,36 @@
 """Declarative Covenant specs — the ACG as *data*.
 
-A trimmed copy of ``repro.core.spec``: the frozen spec dataclasses, their
-``to_dict``/``from_dict`` serialisation, the terse builders, the common
-mnemonic vocabulary ``acg_spec`` fills in, ``build_acg`` and
-``validate_spec``, with the same logic.  Variant derivation, JSON
-fingerprints and ``spec_of`` stay in the reference package.
+The paper's adaptability claim (§2: design changes absorbed "without
+complete compiler redevelopment") only holds if an accelerator can be
+described without writing compiler-adjacent code.  An ``ACGSpec`` is that
+description: a frozen, serializable value covering everything an ACG
+carries — memories, compute capabilities, edges, mnemonic layouts, cost
+attributes — with
+
+* ``ACG.from_spec(spec)`` / ``acg.to_spec()`` round-tripping losslessly
+  (byte-identical instruction streams, tested per paper layer);
+* ``spec.fingerprint()`` — a canonical content hash that is the ACG
+  component of every compile-cache and ``ArtifactStore`` key, so two
+  distinct in-memory ACGs can never alias on a name and a mutated ACG can
+  never collect a stale warm hit;
+* ``spec.derive(**overrides)`` — architecture families as data: scale the
+  PE array (``pe="32x32"``), resize a scratchpad (``memories={"VMEM1":
+  {"depth": 4096}}``), re-rate an interconnect, and recompile every paper
+  layer against the variant.  Derived specs get a canonical
+  ``base@key=value`` name that the target registry resolves directly
+  (``repro_torch.compile(layer, "dnnweaver@pe=32x32")``).
+
+``validate_spec`` performs the structural half of covenant validation
+(``core/covenant.py`` holds the codelet-vs-ACG half): every problem is a
+named, actionable message instead of a ``KeyError`` three passes deep.
+
+The port's copy of ``repro.core.spec``, with the same logic.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Iterable, Mapping, Sequence
 
 from .dtypes import dt
@@ -169,10 +191,255 @@ class ACGSpec:
                 for (n, c), ports in d.get("operand_ports", ())),
         )
 
+    def to_json(self, indent: int | None = None) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, text: str) -> "ACGSpec":
+        return cls.from_dict(json.loads(text))
+
+    def fingerprint(self) -> str:
+        """Canonical content hash — the ACG component of compile-cache and
+        artifact-store keys.  Covers *everything* in the spec, including
+        mnemonic field layouts (which the old describe()-based hash missed),
+        so structurally different targets can never alias.
+
+        Mnemonic ``attrs`` holding non-JSON values hash via ``repr``:
+        reprs that embed object addresses make the fingerprint
+        process-local — distinct values never alias (the safe direction,
+        same policy as the pipeline's closure-capture tags), at the cost
+        of cross-process warm store hits for such exotic targets."""
+        payload = json.dumps(self.to_dict(), sort_keys=True,
+                             separators=(",", ":"), default=repr)
+        return hashlib.sha256(payload.encode()).hexdigest()
+
+    # -- derivation ----------------------------------------------------------
+    def derive(self, name: str | None = None, *, pe: str | tuple | None = None,
+               issue_slots: int | None = None, loop_overhead: int | None = None,
+               memories: Mapping[str, Mapping] | None = None,
+               edges: Mapping[tuple[str, str], Mapping] | None = None,
+               ) -> "ACGSpec":
+        """A perturbed copy of this spec — one member of an architecture
+        family (the paper's adaptability claim as a runnable sweep).
+
+        * ``pe="32x32"`` (or ``(32, 32)``) rescales the PE array: on the
+          PE-grid unit (the one owning the largest matmul geometry by
+          invocation size), dimensions equal to the base array dimension
+          are replaced in operand shapes and geometry alike; every other
+          unit — including SIMD/vector lanes that happen to match the
+          array width — is untouched, so the sweep varies one design
+          axis.  Square arrays only.
+        * ``memories={"VMEM1": {"depth": 4096}}`` resizes storage nodes.
+        * ``edges={("DRAM", "IBUF"): {"bandwidth": 512}}`` re-rates
+          interconnect.
+        * ``issue_slots`` / ``loop_overhead`` override the scalar knobs.
+
+        Unless ``name`` is given, the derived spec is named canonically —
+        ``base@key=value,...`` with sorted tokens — which the target
+        registry parses back, so the name alone reproduces the variant.
+        """
+        new_mem = self.memories
+        new_cu = self.computes
+        new_edges = self.edges
+        tokens: dict[str, str] = _name_tokens(self.name)
+        base = self.name.partition("@")[0]
+
+        if pe is not None:
+            rows, cols = _parse_pe(pe)
+            grid = _pe_grid(self.computes)
+            if grid is None:
+                raise SpecError(self.name, [
+                    "pe override: no capability with matmul-family geometry "
+                    "to rescale"])
+            unit, old = grid
+            if rows != cols:
+                raise SpecError(self.name, [
+                    f"pe override {rows}x{cols}: only square PE arrays are "
+                    f"derivable (base array is {old}x{old})"])
+            new_cu = tuple(_scale_compute(c, old, rows) if c.name == unit
+                           else c for c in new_cu)
+            tokens["pe"] = f"{rows}x{cols}"
+        if memories:
+            by_name = {m.name: m for m in new_mem}
+            for mname, fields in memories.items():
+                if mname not in by_name:
+                    raise SpecError(self.name, [
+                        f"memory override: no memory node {mname!r} "
+                        f"(have: {sorted(by_name)})"])
+                bad = set(fields) - {"data_width", "banks", "depth", "offchip"}
+                if bad:
+                    raise SpecError(self.name, [
+                        f"memory override {mname}: unknown field(s) "
+                        f"{sorted(bad)}"])
+                by_name[mname] = dataclasses.replace(by_name[mname], **fields)
+                for f, val in sorted(fields.items()):
+                    tokens[f"{mname}.{f}"] = str(val)
+            new_mem = tuple(by_name[m.name] for m in new_mem)
+        if edges:
+            known = {(e.src, e.dst) for e in new_edges}
+            for key, fields in edges.items():
+                if tuple(key) not in known:
+                    raise SpecError(self.name, [
+                        f"edge override: no edge {key[0]}->{key[1]}"])
+                bad = set(fields) - {"bandwidth", "latency"}
+                if bad:
+                    raise SpecError(self.name, [
+                        f"edge override {key[0]}->{key[1]}: unknown "
+                        f"field(s) {sorted(bad)}"])
+                for f, val in sorted(fields.items()):
+                    tokens[f"edge.{key[0]}.{key[1]}.{f}"] = str(val)
+            new_edges = tuple(
+                dataclasses.replace(e, **dict(edges.get((e.src, e.dst), {})))
+                for e in new_edges)
+        if issue_slots is not None:
+            tokens["issue_slots"] = str(issue_slots)
+        if loop_overhead is not None:
+            tokens["loop_overhead"] = str(loop_overhead)
+
+        if name is None:
+            suffix = ",".join(f"{k}={v}" for k, v in sorted(tokens.items()))
+            name = f"{base}@{suffix}" if suffix else base
+        out = dataclasses.replace(
+            self, name=name, memories=new_mem, computes=new_cu,
+            edges=new_edges,
+            issue_slots=(issue_slots if issue_slots is not None
+                         else self.issue_slots),
+            loop_overhead=(loop_overhead if loop_overhead is not None
+                           else self.loop_overhead))
+        validate_spec(out)
+        return out
+
     def __repr__(self) -> str:
         return (f"ACGSpec({self.name!r}, {len(self.memories)} mem, "
                 f"{len(self.computes)} cu, {len(self.edges)} edges, "
                 f"{len(self.mnemonics)} mnemonics)")
+
+
+def _name_tokens(name: str) -> dict[str, str]:
+    """The ``k=v`` override tokens already present in a derived name, so
+    deriving a derived spec merges instead of nesting ``@`` suffixes."""
+    _, sep, suffix = name.partition("@")
+    if not sep:
+        return {}
+    out = {}
+    for tok in suffix.split(","):
+        k, _, v = tok.partition("=")
+        if k and v:
+            out[k] = v
+    return out
+
+
+def _parse_pe(pe) -> tuple[int, int]:
+    if isinstance(pe, str):
+        parts = pe.lower().split("x")
+        try:
+            if len(parts) != 2:
+                raise ValueError
+            return int(parts[0]), int(parts[1])
+        except ValueError:
+            raise SpecError("pe", [f"pe override must look like '32x32', "
+                                   f"got {pe!r}"]) from None
+    rows, cols = pe
+    return int(rows), int(cols)
+
+
+def _pe_grid(computes: Sequence[ComputeSpec]) -> tuple[str, int] | None:
+    """(unit name, base PE-array dimension) of the PE grid: the compute
+    unit owning the capability with the largest geometry *product* (MACs
+    per invocation — the array size), whose max dim is the array
+    dimension.  Distinguishes the systolic array from e.g. a SIMD unit
+    whose lane count happens to equal the array width."""
+    best: tuple[str, int] | None = None
+    best_size = 1
+    for c in computes:
+        for k in c.capabilities:
+            if k.geometry is not None:
+                size = k.geometry[0] * k.geometry[1] * k.geometry[2]
+                if size > best_size and max(k.geometry) > 1:
+                    best = (c.name, max(k.geometry))
+                    best_size = size
+    return best
+
+
+def _scale_compute(c: ComputeSpec, old: int, new: int) -> ComputeSpec:
+    """Rescale the PE-grid unit: only capabilities whose *geometry* carries
+    the base array dimension are touched — and ``derive`` only calls this
+    for the unit ``_pe_grid`` identified, so sibling vector/SIMD units
+    (even ones whose lane count equals the array width) keep their shapes
+    and a ``pe=`` sweep varies exactly one design axis."""
+    def dim(d: int) -> int:
+        return new if d == old else d
+
+    def operand(o: Operand) -> Operand:
+        return (o[0],) + tuple(dim(d) for d in o[1:])
+
+    def scale(k: CapabilitySpec) -> CapabilitySpec:
+        if k.geometry is None or old not in k.geometry:
+            return k
+        return dataclasses.replace(
+            k,
+            outputs=tuple(operand(o) for o in k.outputs),
+            inputs=tuple(operand(i) for i in k.inputs),
+            geometry=tuple(dim(d) for d in k.geometry))
+
+    return dataclasses.replace(
+        c, capabilities=tuple(scale(k) for k in c.capabilities))
+
+
+def parse_overrides(text: str) -> dict:
+    """Parse a variant suffix (``"pe=32x32,VMEM1.depth=4096"``) into
+    ``derive()`` keyword arguments.  Grammar, one ``key=value`` per comma:
+
+    * ``pe=RxC``                      — PE-array rescale
+    * ``issue_slots=N`` / ``loop_overhead=N``
+    * ``<MEM>.<field>=N``             — memory node override
+    * ``edge.<SRC>.<DST>.<field>=N``  — edge override
+    """
+    def as_int(key: str, val: str) -> int:
+        try:
+            return int(val)
+        except ValueError:
+            raise SpecError(text, [
+                f"override {key}={val!r}: value must be an integer"]) \
+                from None
+
+    kwargs: dict = {}
+    for tok in filter(None, (t.strip() for t in text.split(","))):
+        key, sep, val = tok.partition("=")
+        if not sep or not val:
+            raise SpecError(text, [f"override token {tok!r} is not "
+                                   f"'key=value'"])
+        if key == "pe":
+            kwargs["pe"] = val
+        elif key in ("issue_slots", "loop_overhead"):
+            kwargs[key] = as_int(key, val)
+        elif key.startswith("edge."):
+            parts = key.split(".")
+            if len(parts) != 4:
+                raise SpecError(text, [
+                    f"edge override {key!r} must be "
+                    f"'edge.<SRC>.<DST>.<field>'"])
+            _, src, dst, field = parts
+            kwargs.setdefault("edges", {}).setdefault((src, dst), {})[
+                field] = as_int(key, val)
+        elif "." in key:
+            mname, _, field = key.partition(".")
+            if field == "offchip":
+                low = val.lower()
+                if low not in ("true", "false", "1", "0"):
+                    raise SpecError(text, [
+                        f"override {key}={val!r}: value must be a boolean "
+                        f"(true/false/1/0)"])
+                value: object = low in ("true", "1")
+            else:
+                value = as_int(key, val)
+            kwargs.setdefault("memories", {}).setdefault(mname, {})[
+                field] = value
+        else:
+            raise SpecError(text, [
+                f"unknown override key {key!r}; expected pe, issue_slots, "
+                f"loop_overhead, <MEM>.<field> or edge.<SRC>.<DST>.<field>"])
+    return kwargs
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +604,39 @@ def build_acg(spec: ACGSpec):
     return g
 
 
+def spec_of(acg) -> ACGSpec:
+    """Snapshot a live ACG back into its canonical spec (``acg.to_spec``)."""
+    from .acg import MemoryNode
+
+    def operand(o) -> Operand:
+        return (o.dtype.name,) + tuple(o.shape)
+
+    memories = tuple(
+        MemorySpec(m.name, m.data_width, m.banks, m.depth, m.offchip)
+        for m in acg.nodes.values() if isinstance(m, MemoryNode))
+    computes = tuple(
+        ComputeSpec(c.name, tuple(
+            CapabilitySpec(k.name, tuple(operand(o) for o in k.outputs),
+                           tuple(operand(i) for i in k.inputs), k.cycles,
+                           k.geometry)
+            for k in c.capabilities), c.slot)
+        for c in acg.nodes.values() if not isinstance(c, MemoryNode))
+    edges = tuple(EdgeSpec(e.src, e.dst, e.bandwidth, e.latency)
+                  for e in acg.edges)
+    mnemonics = tuple(
+        MnemonicSpec(m.name, m.opcode,
+                     tuple(FieldSpec(f.name, f.bits, f.enum, f.rw)
+                           for f in m.fields),
+                     tuple(sorted(m.attrs.items())))
+        for m in acg.mnemonics.values())
+    ports = tuple(sorted((tuple(k), tuple(v))
+                         for k, v in acg.operand_ports.items()))
+    return ACGSpec(name=acg.name, memories=memories, computes=computes,
+                   edges=edges, mnemonics=mnemonics,
+                   issue_slots=acg.issue_slots,
+                   loop_overhead=acg.loop_overhead, operand_ports=ports)
+
+
 # ---------------------------------------------------------------------------
 # structural validation
 # ---------------------------------------------------------------------------
@@ -461,6 +761,6 @@ def validate_spec(spec: ACGSpec, *, raise_on_error: bool = True) -> list[str]:
 __all__ = [
     "ACGSpec", "BINARY", "CapabilitySpec", "ComputeSpec", "EdgeSpec",
     "FieldSpec", "MemorySpec", "MnemonicSpec", "SpecError", "UNARY",
-    "acg_spec", "build_acg", "common_mnemonics", "scap", "scu", "sedge",
-    "smem", "sop", "validate_spec",
+    "acg_spec", "build_acg", "common_mnemonics", "parse_overrides", "scap",
+    "scu", "sedge", "smem", "sop", "spec_of", "validate_spec",
 ]

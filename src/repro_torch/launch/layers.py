@@ -1,12 +1,15 @@
-"""The GEMM workloads of an LM block, through the Covenant GEMM kernel.
+"""Covenant layer compilation for the serving and training stack.
 
 The counterpart of ``repro/launch/layers.py``: ``LayerGemm`` and
 ``lm_layer_gemms`` give a model's block GEMMs at its real widths, and
-``layer_report`` runs each of them through ``ops.covenant_matmul`` with the
-blocks the tiler picks against the ``h100`` covenant, timing it on the
-device.  The reference's report compiles the same GEMMs with its Covenant
-compile driver and counts accelerator cycles; that driver, and with it
-``compile_layer_gemms`` and ``variant_report``, comes with a later slice.
+``compile_layer_gemms`` compiles each of them through the port's Covenant
+compile driver (``repro_torch.compile_many``: the shared content-addressed
+cache, optional schedule search and the ``REPRO_TORCH_CACHE_DIR`` store)
+against any covenant the port's registry names, derived variants such as
+``"dnnweaver@pe=32x32"`` included.  ``layer_report`` prints the
+reference's per-GEMM cycle table; against ``h100`` on a card each row also
+carries the time of ``ops.covenant_matmul`` at that shape, with the blocks
+the tiler picks, beside the covenant's prediction of that time.
 """
 from __future__ import annotations
 
@@ -15,10 +18,13 @@ import time
 
 import torch
 
+from .. import core
 from ..core import library
 from ..core.codelet import Codelet
+from ..core.pipeline import CompileOptions
 from ..kernels import ops
 from ..kernels.tiling import gemm_blocks
+from ..targets import H100
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,8 +37,11 @@ class LayerGemm:
     n: int
     k: int
 
-    def build(self) -> Codelet:
-        return library.gemm(self.tokens, self.n, self.k, name=self.name)
+    def build(self, in_dtype: str = "i8", acc_dtype: str = "i32") -> Codelet:
+        """The GEMM codelet: the reference's i8 one unless asked for
+        another dtype (the port's kernels run bf16 with an f32 sum)."""
+        return library.gemm(self.tokens, self.n, self.k, name=self.name,
+                            in_dtype=in_dtype, acc_dtype=acc_dtype)
 
 
 def lm_layer_gemms(cfg, tokens: int, lm_head: bool = True) -> list[LayerGemm]:
@@ -55,33 +64,110 @@ def lm_layer_gemms(cfg, tokens: int, lm_head: bool = True) -> list[LayerGemm]:
     return out
 
 
-def layer_report(cfg, tokens: int, *, device: str | torch.device = "cuda",
-                 seed: int = 0) -> str:
-    """Per-GEMM table: shape, the tiler's blocks and the mean time of
-    ``ops.covenant_matmul`` on random bf16 operands (CUDA events on a card,
-    the host clock on the CPU; the column names the device)."""
-    device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+def compile_layer_gemms(cfg, tokens: int, target: str = "h100",
+                        options: CompileOptions | None = None,
+                        ) -> list[tuple[LayerGemm, "core.CompiledArtifact"]]:
+    """Compile every block GEMM of ``cfg`` through
+    ``repro_torch.compile_many`` (shared content-addressed cache, optional
+    disk store and search).  ``target`` is any name of the port's registry
+    (``core.targets``), derived-variant names included."""
     gemms = lm_layer_gemms(cfg, tokens)
+    arts = core.compile_many(gemms, target=target, options=options)
+    return list(zip(gemms, arts))
+
+
+def variant_report(cfg, tokens: int, targets: list[str],
+                   options: CompileOptions | None = None) -> str:
+    """Per-GEMM cycles across several targets or architecture variants in
+    one batched heterogeneous ``compile_many``: the design-space view of a
+    serving config."""
+    gemms = lm_layer_gemms(cfg, tokens)
+    pairs = [(g, t) for t in targets for g in gemms]
+    arts = core.compile_many(pairs, options=options)
     width = max(len(g.name) for g in gemms)
-    lines = [f"[covenant] {cfg.name} block GEMMs @ h100 tiler, "
-             f"tokens={tokens}, {device.type} ms"]
-    total = 0.0
-    for g in gemms:
-        a = torch.randn((g.tokens, g.k), generator=gen, device=device,
-                        dtype=torch.float32).to(torch.bfloat16)
-        b = torch.randn((g.k, g.n), generator=gen, device=device,
-                        dtype=torch.float32).to(torch.bfloat16)
-        ms = mean_ms(lambda: ops.covenant_matmul(a, b), device, 3)
-        total += ms
-        blocks = "x".join(map(str, gemm_blocks(g.tokens, g.n, g.k,
-                                               wgmma=True)))
+    lines = [f"[covenant] {cfg.name} variants, tokens={tokens}"]
+    header = "  " + " " * width + "".join(f" {t:>24s}" for t in targets)
+    lines.append(header)
+    for gi, g in enumerate(gemms):
+        row = f"  {g.name:{width}s}"
+        for ti in range(len(targets)):
+            row += f" {arts[ti * len(gemms) + gi].cycles():24.0f}"
+        lines.append(row)
+    return "\n".join(lines)
+
+
+def check_accel_target(ap, name: str) -> None:
+    """``ap.error`` (exit 2) unless ``name`` is ``none`` or a target the
+    port's registry resolves, derived variants included."""
+    if name == "none":
+        return
+    try:
+        core.targets.get_target(name)
+    except (KeyError, ValueError) as e:
+        ap.error(f"--accel-target {name!r}: {e.args[0]} (a registered "
+                 f"name, a derived base@key=value or 'none')")
+
+
+def predicted_ms(cycles: float) -> float:
+    """The ``h100`` covenant's time for ``cycles``: its ACG models one SM,
+    so the cycles of one GEMM, spread over the card's SMs, run at the
+    tensor cores' clock (``targets.H100``)."""
+    return cycles / H100["clock_hz"] / H100["sms"] * 1e3
+
+
+def layer_report(cfg, tokens: int, target: str = "h100",
+                 options: CompileOptions | None = None, *,
+                 device: str | torch.device | None = None,
+                 seed: int = 0) -> str:
+    """The reference's per-GEMM cycle table (its i8 codelets) and the
+    driver's cache and store counts.  Against ``h100`` with a CUDA
+    ``device``, each row also carries the mean time of
+    ``ops.covenant_matmul`` on random bf16 operands at that shape (CUDA
+    events around 3 calls after one warm-up) beside the covenant's
+    prediction of it (``predicted_ms`` of the same GEMM compiled in bf16
+    with an f32 sum), and the tiler's blocks; the total line sums both
+    times."""
+    pairs = compile_layer_gemms(cfg, tokens, target, options)
+    timed = (target == "h100" and device is not None
+             and torch.device(device).type == "cuda")
+    if timed:
+        device = torch.device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+    width = max(len(g.name) for g, _ in pairs)
+    lines = [f"[covenant] {cfg.name} @ {target}, tokens={tokens}"]
+    total = pred_total = ms_total = 0.0
+    for g, art in pairs:
+        cyc = art.cycles()
+        total += cyc
+        searched = ""
+        if art.search is not None:
+            searched = f"  search_gain=x{art.search.gain:.2f}"
         shape = f"{g.tokens}x{g.n}x{g.k}"
-        lines.append(f"  {g.name:{width}s} {shape:18s} blocks {blocks:12s} "
-                     f"{ms:10.4f} ms")
-    lines.append(f"  {'block total':{width}s} {'':18s} {'':19s}"
-                 f"{total:10.4f} ms")
+        row = f"  {g.name:{width}s} {shape:16s} {cyc:14.0f} cyc{searched}"
+        if timed:
+            a = torch.randn((g.tokens, g.k), generator=gen, device=device,
+                            dtype=torch.float32).to(torch.bfloat16)
+            b = torch.randn((g.k, g.n), generator=gen, device=device,
+                            dtype=torch.float32).to(torch.bfloat16)
+            ms = mean_ms(lambda: ops.covenant_matmul(a, b), device, 3)
+            pred = predicted_ms(core.compile(
+                g.build("bf16", "f32"), target, options).cycles())
+            ms_total += ms
+            pred_total += pred
+            blocks = "x".join(map(str, gemm_blocks(g.tokens, g.n, g.k,
+                                                   wgmma=True)))
+            row += (f"  bf16 predicted {pred:10.4f} ms  cuda {ms:10.4f} ms"
+                    f"  blocks {blocks}")
+        lines.append(row)
+    stats = core.cache_stats()
+    total_row = (f"  {'block total':{width}s} {'':16s} {total:14.0f} cyc  "
+                 f"(cache hits={stats['hits']} misses={stats['misses']} "
+                 f"store_hits={stats['store_hits']})")
+    if timed:
+        total_row += (f"  bf16 predicted {pred_total:10.4f} ms  "
+                      f"cuda {ms_total:10.4f} ms")
+    lines.append(total_row)
     return "\n".join(lines)
 
 
@@ -229,6 +315,7 @@ def profile_window(fn, label: str, tries: int = 8
                          f"{tries} windows")
 
 
-__all__ = ["DEVICE_WINDOWS", "LayerGemm", "PROFILER_WINDOWS", "device_kernels",
+__all__ = ["DEVICE_WINDOWS", "LayerGemm", "PROFILER_WINDOWS",
+           "check_accel_target", "compile_layer_gemms", "device_kernels",
            "device_ms", "layer_report", "lm_layer_gemms", "lost_markers",
-           "mean_ms", "profile_window"]
+           "mean_ms", "predicted_ms", "profile_window", "variant_report"]

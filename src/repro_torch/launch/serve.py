@@ -14,10 +14,13 @@ output beside each batch (``Model.extra_inputs``), drawn from the prompts'
 numpy rng as the reference draws it; paligemma's cache must hold its image
 prefix, prompt and new tokens (``--max-len`` at least ``vis_tokens +
 prompt_len + max_new``), or serving refuses to start where the reference
-would roll the cache silently.  Before serving, as the reference prints its
-per-layer cycle report, this prints ``launch.layers.layer_report``: the
-model's block GEMMs at the decode batch through the Covenant-tiled GEMM
-kernel, timed on the device.
+would roll the cache silently.  Before serving, as the reference does, this
+prints ``launch.layers.layer_report``: the model's block GEMMs at the
+decode batch compiled by the Covenant driver against ``--accel-target``
+(any name of the port's registry, derived variants included; ``none``
+skips it; an unknown name exits 2), with ``--accel-search`` through
+schedule search; against ``h100`` on a card each GEMM also runs through
+the Covenant-tiled GEMM kernel, timed beside the covenant's prediction.
 """
 from __future__ import annotations
 
@@ -28,10 +31,11 @@ import numpy as np
 import torch
 
 from .. import configs
+from ..core import CompileOptions, SearchOptions
 from ..kernels.flash_attention import flash_attention, flash_decode
 from ..kernels.matmul import matmul
 from ..kernels.ssd_scan import ssd_chunk_scan
-from .layers import layer_report
+from .layers import check_accel_target, layer_report
 from ..models import Model, get_model
 
 EOS = 1
@@ -110,7 +114,16 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--attn", choices=("kernel", "plain"), default="kernel")
     ap.add_argument("--n-layers", type=int, default=0,
                     help="serve this many layers at full width (0: all)")
+    ap.add_argument("--accel-target", default="h100",
+                    help="Covenant target of the layer-compile report: any "
+                         "name of the port's registry, derived variants "
+                         "like 'dnnweaver@pe=32x32' included ('none' skips "
+                         "it)")
+    ap.add_argument("--accel-search", action="store_true",
+                    help="schedule-search the layer compiles "
+                         "(CompileOptions(search=...))")
     args = ap.parse_args(argv)
+    check_accel_target(ap, args.accel_target)
 
     cfg = configs.get_config(args.arch, smoke=args.smoke)
     if args.n_layers:
@@ -124,8 +137,13 @@ def main(argv: list[str] | None = None) -> dict:
                  f"prefix {cfg.vis_tokens} + prompt {args.prompt_len} + "
                  f"new tokens {args.max_new}); got {args.max_len}")
     before = kernel_launches()
-    print(layer_report(cfg, tokens=args.batch, device=args.device,
-                       seed=args.seed))
+    if args.accel_target != "none":
+        opts = CompileOptions(
+            search=SearchOptions(generations=3, population=8)
+            if args.accel_search else None)
+        print(layer_report(cfg, tokens=args.batch, target=args.accel_target,
+                           options=opts, device=args.device,
+                           seed=args.seed))
     model = get_model(cfg, device=args.device, attn=args.attn)
     params = model.init_params(args.seed)
     rng = np.random.default_rng(args.seed)

@@ -19,10 +19,13 @@ layer groups (gemma3's 5 local + 1 global, zamba2's mamba layers between
 uses of its shared block), and whisper, whose encoder it would not cut.
 ``--ckpt-every 0`` writes no checkpoint.  AdamW updates its moments in
 place (``adamw(..., inplace=True)``).  Before training it
-prints ``launch.layers.layer_report`` at ``global_batch x seq_len`` tokens
-(the model's block GEMMs through the Covenant-tiled GEMM kernel;
-``--accel-target none`` skips it).  The reference's ``--multi-pod`` and
-``--model-axis`` wait for the distribution slice.
+prints ``launch.layers.layer_report`` at ``global_batch x seq_len`` tokens:
+the model's block GEMMs compiled by the Covenant driver against
+``--accel-target`` (any name of the port's registry, derived variants
+included; ``none`` skips it; an unknown name exits 2), and against
+``h100`` on a card also timed through the Covenant-tiled GEMM kernel.
+The reference's ``--multi-pod`` and ``--model-axis`` wait for the
+distribution slice.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from ..kernels.ssd_scan import ssd_chunk_scan
 from ..models import get_model
 from ..optim import adamw, cosine_schedule, int8_compressed
 from ..runtime import make_train_step, train_loop
-from .layers import layer_report
+from .layers import check_accel_target, layer_report
 
 
 def kernel_launches() -> dict[str, int]:
@@ -94,15 +97,17 @@ def main(argv: list[str] | None = None) -> dict:
                     help="steps between checkpoints (0: none)")
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--accel-target", choices=("h100", "none"),
-                    default="h100",
-                    help="covenant of the block-GEMM report ('none' skips "
+    ap.add_argument("--accel-target", default="h100",
+                    help="Covenant target of the layer-compile report: any "
+                         "name of the port's registry, derived variants "
+                         "like 'dnnweaver@pe=32x32' included ('none' skips "
                          "it)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--attn", choices=("kernel", "plain"), default="kernel")
     ap.add_argument("--n-layers", type=int, default=0,
                     help="train this many layers at full width (0: all)")
     args = ap.parse_args(argv)
+    check_accel_target(ap, args.accel_target)
 
     cfg = configs.get_config(args.arch, smoke=args.smoke)
     if args.n_layers:
@@ -110,8 +115,8 @@ def main(argv: list[str] | None = None) -> dict:
     tokens = args.global_batch * args.seq_len
     before = kernel_launches()
     if args.accel_target != "none":
-        print(layer_report(cfg, tokens=tokens, device=args.device,
-                           seed=args.seed))
+        print(layer_report(cfg, tokens=tokens, target=args.accel_target,
+                           device=args.device, seed=args.seed))
     model = get_model(cfg, device=args.device, attn=args.attn)
     print(f"[train] {cfg.name} ({cfg.n_layers} layers) on {args.device} "
           f"(attn={args.attn}), batch {args.global_batch} x "

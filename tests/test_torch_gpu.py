@@ -1573,3 +1573,33 @@ def test_train_configs_cli_smoke_on_card(cuda, arch, tmp_path):
     assert out["launches"]["flash_attention_bwd"] == 3 * per
     assert out["launches"]["flash_attention"] == 0
     assert out["launches"]["flash_decode"] == 0
+
+
+@pytest.mark.parametrize("tokens", [4, 2048])
+def test_layer_report_times_each_gemm_beside_its_prediction(cuda, tokens):
+    """Against ``h100`` on the card each row of the cycle table carries
+    the covenant's predicted ms and ``covenant_matmul``'s time (one
+    warm-up and three timed calls a GEMM); against another covenant the
+    table is cycles only and launches nothing."""
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import layers
+
+    cfg = get_config("qwen3-0.6b")
+    before = matmul.launches
+    text = layers.layer_report(cfg, tokens, "h100", device=cuda)
+    torch.cuda.synchronize()
+    rows = text.splitlines()[1:]
+    gemms = layers.lm_layer_gemms(cfg, tokens)
+    assert matmul.launches == before + 4 * len(gemms)
+    for g, row in zip(gemms, rows):
+        cyc = float(row.split()[2])
+        pred = float(row.split("predicted")[1].split()[0])
+        ms = float(row.split("cuda")[1].split()[0])
+        bf16 = repro_torch.compile(g.build("bf16", "f32"), "h100").cycles()
+        assert cyc > 0 and ms > 0
+        assert pred == pytest.approx(layers.predicted_ms(bf16), abs=5e-5)
+    assert "predicted" in rows[-1] and "block total" in rows[-1]
+    before = matmul.launches
+    other = layers.layer_report(cfg, tokens, "hvx", device=cuda)
+    assert "predicted" not in other and matmul.launches == before

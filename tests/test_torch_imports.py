@@ -49,7 +49,11 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "repro_torch.configs.whisper_base",
                 "repro_torch.configs.paligemma_3b",
                 "repro_torch.launch.attn_probes",
-                "repro_torch.launch.ssd_probes"}
+                "repro_torch.launch.ssd_probes"} | {
+        f"repro_torch.core.{m}" for m in (
+            "driver", "pipeline", "passes", "codegen", "cost", "stream",
+            "interp", "semantics", "covenant", "search", "store",
+            "targets")}
     assert expected <= set(res["modules"])
 
 

@@ -535,7 +535,7 @@ def test_train_cli_on_cpu(capsys):
                                 "--global-batch", "4", "--accel-target",
                                 "none", "--ckpt-dir", d])
     text = capsys.readouterr().out
-    assert "[covenant] qwen3-0.6b block GEMMs" in text
+    assert "[covenant] qwen3-0.6b @ h100, tokens=128" in text
     assert "[train] done: 3 steps, loss" in text
     assert out["report"].steps_run == 3
     assert all(np.isfinite(out["report"].losses))
