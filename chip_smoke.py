@@ -146,14 +146,39 @@
    dnnweaver@pe=32x32`` (exit 0, ``block total`` printed, flash attention
    and flash decode launched); and replays every compile from
    the store in a child process, which must run no pipeline stage;
-15. prints the count of ``device_ms`` windows taken again as the host
+15. the sweep coordinator, ``compile_many(parallel=N)`` and the model
+   examples on the card: ``python -m repro_torch.sweep`` over every paper
+   layer x ``h100``, ``h100@HBM.depth=4096`` and ``dnnweaver@pe=32x32``
+   with 4 workers into a fresh store, cold (each unit compiled exactly
+   once by the sweep journal) and warm (every unit from the store, zero
+   pipeline stages); phase 14's i8 compiles again in a child through
+   ``compile_layer_gemms(..., parallel=4)``, whose cycles must equal
+   phase 14's serial ones; the examples' attention kernels at the shapes
+   their paths give them, in f32 (train_lm's 12 / 6 heads of 64 over 256,
+   serve_lm's 4 / 2 heads of 16 with its window of 8 and without), held
+   against their plain versions, and each example's model, kernel path
+   against plain path (serve_lm's logits 1e-4; a train_lm step as phase
+   13's); ``python -m repro_torch.examples.serve_lm``
+   (exit 0, ``block total``, flash attention and flash decode launched)
+   and ``python -m repro_torch.examples.train_lm --steps 30`` (exit 0,
+   the loss falling, the LSE forward and the backward launched exactly
+   ``train_attention_launches`` times); the examples' launches join the
+   ``kernels`` line;
+16. prints the count of ``device_ms`` windows taken again as the host
    fell behind and of profiler windows that lost records, and what they
-   left (``launch.layers.DEVICE_WINDOWS``, ``PROFILER_WINDOWS``), a
+   left (``launch.layers.DEVICE_WINDOWS``, ``PROFILER_WINDOWS``; one line
+   for this process, one for the child of phases 9 to 13), a
    ``kernels`` JSON line (six kernels, launches summed over every path)
    and, last, the ``ok`` JSON line; the per-case details go to
    ``chiprun_out/chip_smoke.json``.
 
-Every phase raises on failure; there is no CPU fallback.
+Phases 9 to 13 run in a child process (``chip_smoke.py --late``,
+``late_main``), which starts the profiler's clock skew from zero again:
+it grows with a process's age, and each profiled window pauses longer
+than it.  The child draws its checks' inputs on from the parent's
+generator and hands it back, so every check sees the inputs it saw when
+one process ran every phase.  Every phase raises on failure; there is
+no CPU fallback.
 """
 import json
 import os
@@ -175,6 +200,7 @@ import repro_torch  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
+from repro_torch.examples import train_lm as train_lm_example  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd_lse, flash_attention_fwd_lse_plain,
@@ -393,6 +419,53 @@ arts = []
 for arch, tokens in json.loads(sys.argv[1]):
     for g, art in compile_layer_gemms(configs.get_config(arch), tokens):
         arts += [art, repro_torch.compile(g.build("bf16", "f32"), "h100")]
+print(json.dumps({"cycles": [a.cycles() for a in arts],
+                  "executed": [a.ctx.executed for a in arts],
+                  "stats": repro_torch.cache_stats()}))
+'''
+
+# phase 15, the sweep coordinator, ``compile_many(parallel=N)`` and the
+# model examples on the card: ``python -m repro_torch.sweep`` over every
+# paper layer against these targets with 4 workers, cold and then warm
+# (``h100@HBM.depth=4096`` is the variant that streams run on); phase 14's
+# i8 compiles again through ``compile_layer_gemms(parallel=4)``; then
+# ``examples.serve_lm`` and ``examples.train_lm`` for 30 steps
+SWEEP_TARGETS = "h100,h100@HBM.depth=4096,dnnweaver@pe=32x32"
+SWEEP_WORKERS = 4
+SWEEP_STORE = ROOT / "build" / "sweep_store"
+PARALLEL_STORE = ROOT / "build" / "parallel_store"
+TRAIN_LM_STEPS = 30
+TRAIN_LM_CKPT = ROOT / "build" / "train_lm_ckpt"
+# phases 9 to 13 run in a child (``late_main``), which writes its results
+# here, within LATE_TIMEOUT seconds
+LATE_OUT = ROOT / "build" / "late_phases.json"
+LATE_TIMEOUT = 900
+# examples.serve_lm's shapes: its --batch and --max-new, and the
+# --prompt-len and --max-len of launch.serve's defaults, which it keeps;
+# its decode reads the global layers' cache of SERVE_LM_MAX_LEN at
+# SERVE_LM_PROMPT + 1 to SERVE_LM_PROMPT + SERVE_LM_NEW - 1 rows, the
+# local layers' rolling cache of the window full
+SERVE_LM_BATCH, SERVE_LM_NEW = 4, 16
+SERVE_LM_PROMPT, SERVE_LM_MAX_LEN = 16, 96
+# the examples' models in f32, kernel path against plain path: the two
+# differ only in the order of f32 sums inside attention, about
+# sqrt(S) * 2^-24 relative an attention output (S <= 256 keys: 9.5e-7)
+# over 6 and 10 layers, a few 1e-6; the logits' relative L2 <= 1e-4
+# leaves an order and more, as ENCDEC_VLM_F32_REL_L2
+EXAMPLE_F32_REL_L2 = 1e-4
+# the child that compiles phase 14's i8 GEMMs with parallel=4 into a fresh
+# store: argv[1] is the JSON list of (arch, tokens), argv[2] the store;
+# prints every artifact's cycles and the pipeline stages it ran in this
+# process, and the driver's counts
+PARALLEL_COMPILE = '''
+import json, sys
+import repro_torch
+from repro_torch import configs
+from repro_torch.launch.layers import compile_layer_gemms
+opts = repro_torch.CompileOptions(store=sys.argv[2])
+arts = [art for arch, tokens in json.loads(sys.argv[1])
+        for _, art in compile_layer_gemms(configs.get_config(arch), tokens,
+                                          options=opts, parallel=4)]
 print(json.dumps({"cycles": [a.cycles() for a in arts],
                   "executed": [a.ctx.executed for a in arts],
                   "stats": repro_torch.cache_stats()}))
@@ -707,7 +780,8 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
     a cross attention's, ``sq`` queries against ``s`` keys (q row 0 at kv
     position s - sq, as ``FlashAttention`` hands it); device times and
     aten's flash forward (which also returns the logsumexp; with a window,
-    ``aten_flash_window``) on the main path's shapes."""
+    ``aten_flash_window``; in f32 without a window, its memory-efficient
+    forward) on the main path's shapes."""
     sq = s if sq is None else sq
     q, k, v, _ = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype, sq)
     pick = attention_mma_blocks if dtype == torch.bfloat16 \
@@ -735,14 +809,20 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
     if dtype == torch.bfloat16:
         # aten's flash forward, which also returns the logsumexp; it takes
         # equal head counts, so k and v are repeated before the timing
-        q4 = q.reshape(b, hq, sq, d)
-        k4 = k.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
-        v4 = v.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
+        q4, k4, v4 = _library_qkv(q, k, v, b, hq, hkv, s, sq, d)
         lib = (lambda: aten_flash_window(q4, k4, v4, window)) if window \
             else (lambda: torch.ops.aten._scaled_dot_product_flash_attention(
                 q4, k4, v4, 0.0, causal))
         library_ms = mean_ms(lib, dev, 10)
         library_dev_ms = device_ms(lib) if main_path else None
+    elif main_path and not window:
+        # aten's memory-efficient forward, which takes f32 and also returns
+        # the logsumexp; equal head counts, as above
+        q4, k4, v4 = _library_qkv(q, k, v, b, hq, hkv, s, sq, d)
+        eff = torch.ops.aten._scaled_dot_product_efficient_attention
+        lib = lambda: eff(q4, k4, v4, None, True, 0.0, causal)  # noqa: E731
+        library_ms = mean_ms(lib, dev, 10)
+        library_dev_ms = device_ms(lib)
     pairs = _pairs(b, hq, s, causal, window, sq)
     nbytes = (2 * b * hq * sq * d + 2 * b * hkv * s * d) * q.element_size() \
         + b * hq * sq * 4
@@ -762,6 +842,14 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
             library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
             library_device_ms=library_dev_ms, rel_l2=rel,
             rel_tol=ATTN_REL_L2[dtype])
+
+
+def _library_qkv(q, k, v, b, hq, hkv, s, sq, d):
+    """q, k, v as (B, H, S, D) for aten's attention, which takes equal
+    head counts: k and v repeated over each kv head's group."""
+    return (q.reshape(b, hq, sq, d),
+            k.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1),
+            v.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1))
 
 
 def aten_flash_window(q, k, v, window: int, do=None):
@@ -793,7 +881,8 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
     hands it.  Gated at the attention atol and, on each of dq, dk and dv, at
     ``ATTN_REL_L2`` (see ``planted_bwd_fault``); bit-equal on two runs;
     device times and aten's flash backward (with a window,
-    ``aten_flash_window``'s) on the main path's shapes."""
+    ``aten_flash_window``'s; in f32 without a window, its memory-efficient
+    backward) on the main path's shapes."""
     sq = s if sq is None else sq
     q, k, v, do = _train_qkv(dev, gen, b, hq, hkv, s, d, dtype, sq)
     pick = attention_bwd_mma_blocks if dtype == torch.bfloat16 \
@@ -820,9 +909,7 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
     if dtype == torch.bfloat16:
         # aten's flash backward on its own forward's residuals (k and v
         # repeated, so it returns per-q-head dk, dv without the group sum)
-        q4 = q.reshape(b, hq, sq, d)
-        k4 = k.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
-        v4 = v.reshape(b, hkv, s, d).repeat_interleave(hq // hkv, 1)
+        q4, k4, v4 = _library_qkv(q, k, v, b, hq, hkv, s, sq, d)
         do4 = do.reshape(b, hq, sq, d)
         if window:
             lib = aten_flash_window(q4, k4, v4, window, do4)[2]
@@ -837,6 +924,21 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
                 offset)
         library_ms = mean_ms(lib, dev, 10)
         library_dev_ms = device_ms(lib) if main_path else None
+    elif main_path and not window:
+        # aten's memory-efficient backward, which takes f32, on its own
+        # forward's residuals (per-q-head dk, dv, as above)
+        q4, k4, v4 = _library_qkv(q, k, v, b, hq, hkv, s, sq, d)
+        do4 = do.reshape(b, hq, sq, d)
+        aten = torch.ops.aten
+        o4, lse4, seed, offset = \
+            aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, None, True, 0.0, causal)
+        eff_bwd = aten._scaled_dot_product_efficient_attention_backward
+        lib = lambda: eff_bwd(  # noqa: E731
+            do4, q4, k4, v4, None, o4, lse4, seed, offset, 0.0,
+            [True, True, True, False], causal)
+        library_ms = mean_ms(lib, dev, 10)
+        library_dev_ms = device_ms(lib)
     pairs = _pairs(b, hq, s, causal, window, sq)
     # read q, k, v, out, dout and lse once, write dq, dk, dv once; five
     # products (S, dP, dq, dk, dv) of 2 * pairs * D operations each
@@ -2381,6 +2483,46 @@ def train_config(rec: Record, dev, gen, arch: str, seen: set) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def child(args: list[str], tag: str, timeout: int = 600, env=None
+          ) -> tuple[str, float]:
+    """Runs ``python args`` from the repository root with ``src`` on the
+    path; raises unless it exits 0.  Returns (its stdout, wall seconds)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env or {}))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"{tag}: exit {out.returncode}\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout, wall
+
+
+def launches_line(stdout: str, prefix: str) -> dict:
+    """The counts of a child's ``<prefix> kernel launches: k=v ...``."""
+    m = re.search(re.escape(prefix) + r" kernel launches: (.*)", stdout)
+    if m is None:
+        raise AssertionError(f"no '{prefix} kernel launches:' line")
+    return {k: int(v) for k, v in
+            (kv.split("=") for kv in m.group(1).split())}
+
+
+def serve_child(args: list[str], tag: str) -> tuple[str, dict, float]:
+    """A serving entry point run as ``python args`` on the card in a
+    child (``child``): it must print ``block total`` and launch flash
+    attention and flash decode.  Returns (its stdout, its launches, wall
+    seconds)."""
+    stdout, wall = child(args, tag)
+    print(stdout, end="", flush=True)
+    launches = launches_line(stdout, "[serve]")
+    # the model's GEMMs are torch's; only an h100 report launches the GEMM
+    # kernel
+    if "block total" not in stdout or any(
+            launches[k] <= 0 for k in ("flash_attention", "flash_decode")):
+        raise AssertionError(f"{tag}: launches {launches}")
+    return stdout, launches, wall
+
+
 def covenant_on_card(dev, gen, smi: str) -> dict:
     """Phase 14.  Compiles every config's block GEMMs at full width
     against ``h100`` (``COVENANT_TOKENS``) into a fresh disk store: the
@@ -2447,37 +2589,18 @@ def covenant_on_card(dev, gen, smi: str) -> dict:
     torch.cuda.empty_cache()
 
     cli = []
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     for extra in COVENANT_CLI:
-        out = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             ARCH, "--requests", "4", "--max-new", "8", "--seed", "0",
-             "--device", "cuda", *extra], cwd=ROOT, env=env,
-            capture_output=True, text=True, timeout=600)
-        print(out.stdout, end="", flush=True)
-        if out.returncode != 0 or "block total" not in out.stdout:
-            raise AssertionError(f"launch.serve {extra}: exit "
-                                 f"{out.returncode}\n{out.stderr[-3000:]}")
-        counts = re.search(r"\[serve\] kernel launches: (.*)", out.stdout)
-        launches = {k: int(v) for k, v in
-                    (kv.split("=") for kv in counts.group(1).split())}
-        # the model's GEMMs are torch's; only an h100 report launches the
-        # GEMM kernel
-        if any(launches[k] <= 0 for k in ("flash_attention",
-                                          "flash_decode")):
-            raise AssertionError(f"launch.serve {extra}: launches "
-                                 f"{launches}")
+        _, launches, _ = serve_child(
+            ["-m", "repro_torch.launch.serve", "--arch", ARCH, "--requests",
+             "4", "--max-new", "8", "--seed", "0", "--device", "cuda",
+             *extra], f"launch.serve {extra}")
         cli.append(dict(args=extra, launches=launches))
 
     work = [(arch, t) for arch, ts in COVENANT_TOKENS.items() for t in ts]
-    out = subprocess.run(
-        [sys.executable, "-c", COVENANT_REPLAY, json.dumps(work)], cwd=ROOT,
-        env=dict(env, REPRO_TORCH_CACHE_DIR=str(COVENANT_STORE)),
-        capture_output=True, text=True, timeout=600)
-    if out.returncode != 0:
-        raise AssertionError(f"store replay: exit {out.returncode}\n"
-                             f"{out.stderr[-3000:]}")
-    replay = json.loads(out.stdout.strip().splitlines()[-1])
+    stdout, _ = child(["-c", COVENANT_REPLAY, json.dumps(work)],
+                      "store replay",
+                      env={"REPRO_TORCH_CACHE_DIR": str(COVENANT_STORE)})
+    replay = json.loads(stdout.strip().splitlines()[-1])
     stats = replay["stats"]
     print(f"[covenant] store replay in a child process: {len(cycles)} "
           f"artifacts, driver counts {stats}", flush=True)
@@ -2489,13 +2612,289 @@ def covenant_on_card(dev, gen, smi: str) -> dict:
     return dict(gemms=rows, cli=cli, replay=stats)
 
 
-def main() -> None:
+def example_kernels(rec: Record, dev, gen) -> dict:
+    """The model examples' attention kernels held against their plain
+    versions at the shapes their paths give them, in f32 as they run:
+    ``examples.train_lm``'s LSE forward and backward (one microbatch of
+    ``GLOBAL_BATCH // MICROBATCHES`` rows, its 12 / 6 heads of 64 over
+    ``SEQ_LEN``, causal); ``examples.serve_lm``'s prefill attention on the
+    smoke gemma3's 4 / 2 heads of 16 over the prompt, with its window of
+    8 (the local layers) and without (the global one), and its decode
+    against the global layers' cache and the local layers' rolling one.
+    Then each example's model, kernel path against plain path on the same
+    weights: serve_lm's logits at prefill and each decode step it serves
+    (``compare_paths``, relative L2 <= ``EXAMPLE_F32_REL_L2``), and one
+    train step of train_lm's model (``compare_train_step``: in f32 the
+    loss 1e-4 and the gradient 1e-3, in bf16 3x the plain path's own
+    one-ulp spread).  Returns the two gates' readings."""
+    lm = train_lm_example.config()
+    mb = train_lm_example.GLOBAL_BATCH // train_lm_example.MICROBATCHES
+    seq = train_lm_example.SEQ_LEN
+    for check in (check_fwd_lse, check_bwd):
+        check(rec, dev, gen, mb, lm.n_heads, lm.n_kv_heads, seq, lm.hd,
+              torch.float32, window=None, main_path=True)
+    sm = configs.get_config("gemma3-12b", smoke=True)
+    heads = dict(b=SERVE_LM_BATCH, hq=sm.n_heads, hkv=sm.n_kv_heads,
+                 d=sm.hd, dtype=torch.float32)
+    for window in (sm.window, None):
+        check_attention(rec, dev, gen, s=SERVE_LM_PROMPT, window=window,
+                        **heads)
+    first, last = SERVE_LM_PROMPT + 1, SERVE_LM_PROMPT + SERVE_LM_NEW - 1
+    check_decode(rec, dev, gen, s=SERVE_LM_MAX_LEN,
+                 lens=(first, 21, 26, last), **heads)
+    check_decode(rec, dev, gen, s=sm.window,
+                 lens=(sm.window,) * SERVE_LM_BATCH, **heads)
+    rel, agree, model, params = compare_paths(
+        sm, dev, SERVE_LM_PROMPT, SERVE_LM_MAX_LEN, tol=EXAMPLE_F32_REL_L2,
+        batch=SERVE_LM_BATCH, steps=SERVE_LM_NEW - 1)
+    del model, params
+    train_gates = compare_train_step(
+        "train_lm", lm, dev, mb, seq, seed=7, moved=("layers", "ln1"),
+        need=["flash_attention_fwd_lse", "flash_attention_bwd"])
+    return dict(serve_lm=dict(rel_l2=rel, argmax_agree=agree),
+                train_lm=train_gates)
+
+
+def sweeps_on_card(rec: Record, dev, gen, covenant: dict, smi: str
+                   ) -> dict:
+    """Phase 15.  (a) ``python -m repro_torch.sweep`` over every paper
+    layer x ``SWEEP_TARGETS`` with ``SWEEP_WORKERS`` workers into a fresh
+    store: cold with ``--assert-unique-compiles`` (every unit compiled,
+    each exactly once by the journal), then warm with
+    ``--expect-store-hits`` too (zero pipeline stages).  (b) Phase 14's i8
+    compiles again in a fresh child through ``compile_layer_gemms(...,
+    parallel=4)`` into a fresh store: the workers compile, the ordered
+    pass restores every artifact warm, and the cycles must equal phase
+    14's serial ones.  (c) ``examples.serve_lm`` on the card: exit 0,
+    ``block total`` printed, flash attention and flash decode launched.
+    (d) ``examples.train_lm --steps 30``: exit 0, the last loss below the
+    first, the LSE forward and the backward launched exactly
+    ``train_attention_launches`` times, no other attention or SSD
+    kernel.  Before (c) and (d), ``example_kernels`` holds the examples'
+    kernels and models against their plain versions."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SWEEP_STORE, ignore_errors=True)
+    sweeps = []
+    for run, extra in (("cold", []), ("warm", ["--expect-store-hits"])):
+        report = SWEEP_STORE.parent / f"sweep_{run}.json"
+        stdout, wall = child(
+            ["-m", "repro_torch.sweep", "--targets", SWEEP_TARGETS,
+             "--workers", str(SWEEP_WORKERS), "--store", str(SWEEP_STORE),
+             "--json", str(report), "--assert-unique-compiles", *extra],
+            f"sweep {run}")
+        rep = repro_torch.SweepReport.load(str(report))
+        counts = rep.counts()
+        print(f"[sweep] {run}: {wall:.1f} s wall, {counts['units']} units; "
+              f"{rep.summary()}; {smi}", flush=True)
+        if run == "cold" and (counts["compiled"] != counts["units"]
+                              or "compiled exactly once" not in stdout):
+            raise AssertionError(f"cold sweep: {counts}")
+        if run == "warm" and ("zero pipeline stages executed" not in stdout
+                              or rep.stages_run()):
+            raise AssertionError(f"warm sweep: {counts}")
+        sweeps.append(dict(run=run, wall_s=wall, summary=rep.summary(),
+                           counts=counts, stages_run=rep.stages_run()))
+    shutil.rmtree(SWEEP_STORE, ignore_errors=True)
+
+    serial = [r["cycles_i8"] for r in covenant["gemms"]]
+    work = [(arch, t) for arch, ts in COVENANT_TOKENS.items() for t in ts]
+    shutil.rmtree(PARALLEL_STORE, ignore_errors=True)
+    stdout, par_wall = child(["-c", PARALLEL_COMPILE, json.dumps(work),
+                              str(PARALLEL_STORE)],
+                             "compile_layer_gemms parallel=4")
+    par = json.loads(stdout.strip().splitlines()[-1])
+    shutil.rmtree(PARALLEL_STORE, ignore_errors=True)
+    print(f"[sweep] compile_layer_gemms(parallel=4) in a child: "
+          f"{len(par['cycles'])} GEMMs in {par_wall:.1f} s wall, driver "
+          f"counts {par['stats']}; cycles equal to phase 14's serial ones: "
+          f"{par['cycles'] == serial}", flush=True)
+    if par["cycles"] != serial or any(par["executed"]) \
+            or par["stats"]["store_hits"] != len(serial):
+        raise AssertionError(f"parallel=4 compiles: {par['stats']}, "
+                             f"{len(par['cycles'])} against "
+                             f"{len(serial)} serial")
+
+    gates = example_kernels(rec, dev, gen)
+    torch.cuda.empty_cache()
+    stdout, serve_launches, wall = serve_child(
+        ["-m", "repro_torch.examples.serve_lm"], "serve_lm")
+    tok_s = float(re.search(r"\(([\d.]+) tok/s\)", stdout).group(1))
+    print(f"[sweep] examples.serve_lm: {tok_s} tok/s, {wall:.1f} s wall, "
+          f"launches {serve_launches}; {smi}", flush=True)
+
+    shutil.rmtree(TRAIN_LM_CKPT, ignore_errors=True)
+    try:
+        stdout, wall = child(["-m", "repro_torch.examples.train_lm",
+                              "--steps", str(TRAIN_LM_STEPS), "--ckpt-dir",
+                              str(TRAIN_LM_CKPT)], "train_lm")
+    finally:
+        shutil.rmtree(TRAIN_LM_CKPT, ignore_errors=True)
+    print(stdout, end="", flush=True)
+    train_launches = launches_line(stdout, "[train_lm]")
+    losses = [float(x) for x in re.search(
+        r"\[train_lm\] losses: (.*)", stdout).group(1).split()]
+    ms = float(re.search(r"\[train_lm\] ([\d.]+) ms per step",
+                         stdout).group(1))
+    required = {"flash_attention": 0, "flash_decode": 0,
+                "ssd_chunk_scan": 0, **train_attention_launches(
+                    train_lm_example.config(), TRAIN_LM_STEPS,
+                    train_lm_example.MICROBATCHES)}
+    print(f"[sweep] examples.train_lm: {len(losses)} steps, {ms} ms a step "
+          f"after the first, loss {losses[0]} -> {losses[-1]}, launches "
+          f"{train_launches}, required {required}; {smi}", flush=True)
+    if len(losses) != TRAIN_LM_STEPS or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_lm: losses {losses}")
+    for name, n in required.items():
+        if train_launches[name] != n:
+            raise AssertionError(f"train_lm: {name} launched "
+                                 f"{train_launches[name]} times, not {n}")
+    return dict(sweeps=sweeps, parallel=dict(
+        wall_s=par_wall, gemms=len(serial), stats=par["stats"]),
+        example_gates=gates,
+        serve_lm=dict(tok_per_s=tok_s, launches=serve_launches),
+        train_lm=dict(ms_per_step=ms, losses=losses,
+                      launches=train_launches, required=required),
+        seconds=time.perf_counter() - t0)
+
+
+def later_configs(rec: Record, dev, gen, t0: float) -> dict:
+    """Phases 9 to 13: the other dense configs and the MoE family served,
+    whisper-base and paligemma-3b served and trained, the MoE family and
+    the other dense configs trained.  Returns each phase's results."""
+    # phase 9: the other dense configs, one after another: gemma3's head
+    # dim 256 also in f32 and through the LSE forward (training's), both
+    # windows; the decode at (256, 8), paligemma's group, beside them
+    dense = {}
+    for arch, n_layers in DENSE_ARCHS.items():
+        if arch == "gemma3-12b":
+            for dtype in (torch.bfloat16, torch.float32):
+                for window in (1024, None):
+                    if dtype == torch.float32:
+                        check_attention(rec, dev, gen, s=DENSE_PROMPT, d=256,
+                                        window=window, dtype=dtype,
+                                        main_path=False)
+                    check_fwd_lse(rec, dev, gen, BATCH, 16, 8, DENSE_PROMPT,
+                                  256, dtype, window=window, main_path=False)
+                check_decode(rec, dev, gen, hq=8, hkv=1, s=DENSE_MAX_LEN,
+                             d=256, lens=(1, 700, 2049, DENSE_MAX_LEN),
+                             dtype=dtype, main_path=False)
+        dense[arch] = serve_dense(rec, dev, gen, arch, n_layers)
+        print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
+              f"{dense[arch]['tok_per_s']:.1f} tok/s", flush=True)
+
+    # phase 10: the MoE family at full width and depth, one after another
+    moes = {}
+    for arch in MOE_ARCHS:
+        moes[arch] = serve_dense(rec, dev, gen, arch, 0)
+        print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
+              f"{moes[arch]['tok_per_s']:.1f} tok/s", flush=True)
+
+    # phase 11: whisper-base, then paligemma-3b, at full width and depth
+    encdec_vlm = {}
+    for arch in ENCDEC_VLM:
+        encdec_vlm[arch] = serve_encdec_vlm(rec, dev, gen, arch)
+        print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
+              f"{encdec_vlm[arch]['tok_per_s']:.1f} tok/s", flush=True)
+
+    # phase 12: whisper-base, then paligemma-3b, trained at full width and
+    # depth
+    encdec_vlm_train = {}
+    for arch in ENCDEC_VLM_TRAIN:
+        encdec_vlm_train[arch] = train_encdec_vlm(rec, dev, gen, arch)
+        print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s: "
+              f"{encdec_vlm_train[arch]['ms_per_step']:.1f} ms a step",
+              flush=True)
+
+    # phase 13: the MoE family and the other dense configs trained at full
+    # width and reduced depth, one after another
+    train_configs, seen = {}, set()
+    for arch in TRAIN_CONFIGS:
+        train_configs[arch] = train_config(rec, dev, gen, arch, seen)
+        print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s: "
+              f"{train_configs[arch]['ms_per_step']:.1f} ms a step, peak "
+              f"{train_configs[arch]['peak_gib']:.2f} GiB", flush=True)
+    return dict(dense=dense, moes=moes, encdec_vlm=encdec_vlm,
+                encdec_vlm_train=encdec_vlm_train, train_configs=train_configs)
+
+
+def late_main(out: str, gen_state: str, offset: str) -> None:
+    """``chip_smoke.py --late OUT STATE OFFSET``, which ``main`` starts
+    after phase 8: phases 9 to 13 (``later_configs``) in a process of
+    their own.  A fresh process starts the profiler's clock skew, which
+    grows with a process's age (``launch.layers``), from zero again, and
+    with it the pause each profiled window takes.  The checks draw from
+    the parent's generator, whose state comes as STATE (hex), so they
+    draw the inputs the phases drew in the parent's process; the phases'
+    times count from OFFSET seconds, the parent's age.  The results, the
+    checks, the window counts (``DEVICE_WINDOWS``, ``PROFILER_WINDOWS``)
+    and the generator's state at the end go to OUT as JSON."""
+    dev = card()
+    _build.build_all()              # built by the parent: loads only
+    gen = torch.Generator(device=dev)
+    gen.set_state(torch.tensor(list(bytes.fromhex(gen_state)),
+                               dtype=torch.uint8))
+    rec = Record()
+    res = later_configs(rec, dev, gen, time.perf_counter() - float(offset))
+    Path(out).parent.mkdir(exist_ok=True)
+    Path(out).write_text(json.dumps(dict(
+        res, cases=rec.cases, device_windows=dict(DEVICE_WINDOWS),
+        profiler_windows=dict(PROFILER_WINDOWS),
+        gen_state=gen.get_state().numpy().tobytes().hex())))
+
+
+def late_child(gen, t0: float) -> dict:
+    """Runs ``late_main`` in a child on the card, its output on this
+    process's, from ``gen``'s state, which it sets to the child's at the
+    end; raises unless the child exits 0.  Returns what the child wrote,
+    its wall seconds under ``wall_s``."""
+    torch.cuda.empty_cache()
+    LATE_OUT.unlink(missing_ok=True)
+    sys.stdout.flush()
+    start = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--late",
+         str(LATE_OUT), gen.get_state().numpy().tobytes().hex(),
+         f"{start - t0:.3f}"], cwd=ROOT, timeout=LATE_TIMEOUT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - start
+    if run.returncode != 0:
+        raise AssertionError(f"phases 9-13: exit {run.returncode}")
+    late = json.loads(LATE_OUT.read_text())
+    LATE_OUT.unlink()
+    gen.set_state(torch.tensor(list(bytes.fromhex(late.pop("gen_state"))),
+                               dtype=torch.uint8))
+    print(f"[phase] phases 9-13 done in a child at "
+          f"{time.perf_counter() - t0:.1f}s ({wall:.1f} s wall)", flush=True)
+    return dict(late, wall_s=wall)
+
+
+def print_windows(where: str, dw: dict, pw: dict) -> None:
+    """The counts of ``device_ms`` and profiler windows of a process."""
+    print(f"[profile] device_ms windows over {where}: "
+          f"{dw['taken']}, of which {dw['late']} "
+          f"taken again as the host fell behind; spin at the end "
+          f"{dw['spin_cycles']} cycles; torch.profiler windows: "
+          f"{pw['taken']}, of which "
+          f"{len(pw['lost'])} lost a marker; pause at the end "
+          f"{pw['pause_s']} s", flush=True)
+    for w in pw["lost"]:
+        print(f"[profile]   lost the {w['marker']} marker of {w['label']} "
+              f"after a pause of {w['pause_s']} s, {w['age_s']} s into the "
+              f"process", flush=True)
+
+
+def card() -> torch.device:
+    """The card, f32 GEMMs in IEEE f32; exits unless there is one."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card; the port runs on the "
                          "card only")
-    dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False   # IEEE f32 plain GEMMs
     torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def main() -> None:
+    dev = card()
 
     # phase 1: build
     t0 = time.perf_counter()
@@ -2623,74 +3022,27 @@ def main() -> None:
         print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s",
               flush=True)
 
-    # phase 9: the other dense configs, one after another: gemma3's head
-    # dim 256 also in f32 and through the LSE forward (training's), both
-    # windows; the decode at (256, 8), paligemma's group, beside them
-    dense = {}
-    for arch, n_layers in DENSE_ARCHS.items():
-        if arch == "gemma3-12b":
-            for dtype in (torch.bfloat16, torch.float32):
-                for window in (1024, None):
-                    if dtype == torch.float32:
-                        check_attention(rec, dev, gen, s=DENSE_PROMPT, d=256,
-                                        window=window, dtype=dtype,
-                                        main_path=False)
-                    check_fwd_lse(rec, dev, gen, BATCH, 16, 8, DENSE_PROMPT,
-                                  256, dtype, window=window, main_path=False)
-                check_decode(rec, dev, gen, hq=8, hkv=1, s=DENSE_MAX_LEN,
-                             d=256, lens=(1, 700, 2049, DENSE_MAX_LEN),
-                             dtype=dtype, main_path=False)
-        dense[arch] = serve_dense(rec, dev, gen, arch, n_layers)
-        print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
-              f"{dense[arch]['tok_per_s']:.1f} tok/s", flush=True)
-
-    # phase 10: the MoE family at full width and depth, one after another
-    moes = {}
-    for arch in MOE_ARCHS:
-        moes[arch] = serve_dense(rec, dev, gen, arch, 0)
-        print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
-              f"{moes[arch]['tok_per_s']:.1f} tok/s", flush=True)
-
-    # phase 11: whisper-base, then paligemma-3b, at full width and depth
-    encdec_vlm = {}
-    for arch in ENCDEC_VLM:
-        encdec_vlm[arch] = serve_encdec_vlm(rec, dev, gen, arch)
-        print(f"[phase] {arch} served at {time.perf_counter() - t0:.1f}s: "
-              f"{encdec_vlm[arch]['tok_per_s']:.1f} tok/s", flush=True)
-
-    # phase 12: whisper-base, then paligemma-3b, trained at full width and
-    # depth
-    encdec_vlm_train = {}
-    for arch in ENCDEC_VLM_TRAIN:
-        encdec_vlm_train[arch] = train_encdec_vlm(rec, dev, gen, arch)
-        print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s: "
-              f"{encdec_vlm_train[arch]['ms_per_step']:.1f} ms a step",
-              flush=True)
-
-    # phase 13: the MoE family and the other dense configs trained at full
-    # width and reduced depth, one after another
-    train_configs, seen = {}, set()
-    for arch in TRAIN_CONFIGS:
-        train_configs[arch] = train_config(rec, dev, gen, arch, seen)
-        print(f"[phase] {arch} trained at {time.perf_counter() - t0:.1f}s: "
-              f"{train_configs[arch]['ms_per_step']:.1f} ms a step, peak "
-              f"{train_configs[arch]['peak_gib']:.2f} GiB", flush=True)
+    # phases 9 to 13 in a child (``late_main``)
+    late = late_child(gen, t0)
+    rec.cases.extend(late["cases"])
+    dense, moes, encdec_vlm, encdec_vlm_train, train_configs = (
+        late[k] for k in ("dense", "moes", "encdec_vlm", "encdec_vlm_train",
+                          "train_configs"))
 
     # phase 14: the Covenant compiler on the card
     covenant = covenant_on_card(dev, gen, smi)
     print(f"[phase] covenant compiler done at {time.perf_counter() - t0:.1f}"
           f"s", flush=True)
-    print(f"[profile] device_ms windows over the run: "
-          f"{DEVICE_WINDOWS['taken']}, of which {DEVICE_WINDOWS['late']} "
-          f"taken again as the host fell behind; spin at the end "
-          f"{DEVICE_WINDOWS['spin_cycles']} cycles; torch.profiler windows: "
-          f"{PROFILER_WINDOWS['taken']}, of which "
-          f"{len(PROFILER_WINDOWS['lost'])} lost a marker; pause at the end "
-          f"{PROFILER_WINDOWS['pause_s']} s", flush=True)
-    for w in PROFILER_WINDOWS["lost"]:
-        print(f"[profile]   lost the {w['marker']} marker of {w['label']} "
-              f"after a pause of {w['pause_s']} s, {w['age_s']} s into the "
-              f"process", flush=True)
+
+    # phase 15: the sweep coordinator, compile_many(parallel=N) and the
+    # model examples
+    sweep = sweeps_on_card(rec, dev, gen, covenant, smi)
+    print(f"[phase] sweeps and examples done at "
+          f"{time.perf_counter() - t0:.1f}s ({sweep['seconds']:.1f} s)",
+          flush=True)
+    print_windows("this process", DEVICE_WINDOWS, PROFILER_WINDOWS)
+    print_windows("phases 9-13's child", late["device_windows"],
+                  late["profiler_windows"])
 
     # the kernels line, launches summed over every main path
     paths = [serve_launches, train_launches] + [
@@ -2698,7 +3050,8 @@ def main() -> None:
                                 *dense.values(), *moes.values(),
                                 *encdec_vlm.values(),
                                 *encdec_vlm_train.values(),
-                                *train_configs.values(), *covenant["cli"])]
+                                *train_configs.values(), *covenant["cli"],
+                                sweep["serve_lm"], sweep["train_lm"])]
     launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     kernels = []
     for name, meta in KERNELS.items():
@@ -2741,9 +3094,12 @@ def main() -> None:
             profile=train_prof),
         ssd=ssd, ssm=ssm, ssm_train=ssm_train, dense=dense, moe=moes,
         encdec_vlm=encdec_vlm, encdec_vlm_train=encdec_vlm_train,
-        train_configs=train_configs, covenant=covenant, launches=launches,
+        train_configs=train_configs, covenant=covenant, sweep=sweep,
+        launches=launches, late_wall_s=late["wall_s"],
         device_windows=dict(DEVICE_WINDOWS),
         profiler_windows=dict(PROFILER_WINDOWS),
+        late_device_windows=late["device_windows"],
+        late_profiler_windows=late["profiler_windows"],
         cases=rec.cases)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
@@ -2754,4 +3110,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--late"]:
+        late_main(*sys.argv[2:5])
+    else:
+        main()

@@ -19,9 +19,11 @@ as ``repro``'s is:
     art.cycles()           # analytic cycles on one SM's covenant
     art.listing()          # macro-mnemonic program listing
 
-Targets are names (``core.targets``: ``example``, ``dnnweaver``, ``hvx``,
-``tpu_v5e``, ``h100`` and derived variants like ``"dnnweaver@pe=32x32"``);
-``REPRO_TORCH_CACHE_DIR`` names a disk artifact store.
+Targets are names (``repro_torch.targets``: ``example``, ``dnnweaver``,
+``hvx``, ``tpu_v5e``, ``h100``, ``register``-ed ones and derived variants
+like ``"dnnweaver@pe=32x32"``); ``REPRO_TORCH_CACHE_DIR`` names a disk
+artifact store, over which ``repro_torch.sweep`` shards (layers x target
+variants) compile sweeps across worker processes.
 """
 from repro_torch.core.covenant import (CovenantError, check_covenant,
                                        validate_acg)
@@ -34,12 +36,27 @@ from repro_torch.core.pipeline import CompileOptions, Pipeline
 from repro_torch.core.spec import (ACGSpec, SpecError, acg_spec,
                                    validate_spec)
 from repro_torch.core.store import WarmStartIndex
+from repro_torch.core.sweep import SweepReport, sweep
+
+
+def __getattr__(name: str):
+    # ``repro_torch.targets`` (the string-addressable registry facade) is
+    # served lazily so ``python -m repro_torch.targets`` does not
+    # double-import it.  (``repro_torch.sweep`` needs no such hook: the
+    # function imported above is the attribute, and the ``sweep.py``
+    # facade module that ``python -m repro_torch.sweep`` or an explicit
+    # submodule import rebinds it to is itself callable.)
+    if name == "targets":
+        import repro_torch.targets as targets
+        return targets
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "ACGSpec", "ArtifactStore", "CompileOptions", "CompiledArtifact",
     "CovenantError", "Pipeline", "SearchOptions", "SearchResult",
-    "SpecError", "WarmStartIndex", "acg_spec", "available_targets",
-    "cache_stats", "check_covenant", "clear_cache", "compile",
-    "compile_key", "compile_many", "register_target", "validate_acg",
-    "validate_spec",
+    "SpecError", "SweepReport", "WarmStartIndex", "acg_spec",
+    "available_targets", "cache_stats", "check_covenant", "clear_cache",
+    "compile", "compile_key", "compile_many", "register_target", "sweep",
+    "targets", "validate_acg", "validate_spec",
 ]

@@ -7,14 +7,15 @@ execution, with ``interp`` (functional) and ``cost`` (analytic cycles) as
 cross-checks.  ``targets`` holds the predefined ACGs, the port's ``h100``
 among them; ``driver`` is the user-facing ``repro_torch.compile()`` entry
 point with the content-addressed compile cache, schedule ``search`` and
-the disk-backed ``store``.  The Hopper kernel tiler (``kernels/tiling.py``)
+the disk-backed ``store``; ``sweep`` is the multi-process sweep
+coordinator over that store.  The Hopper kernel tiler (``kernels/tiling.py``)
 runs on ``scheduler``'s Algorithm 1.
 
 ``repro_torch`` imports nothing of ``repro``, so these modules are copies
 of ``repro.core``'s with the same logic (``dtypes`` gives a torch view
-where the reference gives a jax one).  The reference's sweep coordinator
-(``core/sweep.py``) has no copy here yet.  ``tests/test_torch_tiler.py``
-and ``tests/test_torch_compiler.py`` hold them against the originals.
+where the reference gives a jax one).  ``tests/test_torch_tiler.py``,
+``tests/test_torch_compiler.py`` and ``tests/test_torch_sweep.py`` hold
+them against the originals.
 """
 from . import (acg, codegen, codelet, cost, covenant, driver, dtypes, interp,
                library, passes, pipeline, scheduler, search, semantics, spec,

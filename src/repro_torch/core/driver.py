@@ -12,13 +12,13 @@ Everything the examples, benchmarks and tests used to hand-stitch
 
 Design points:
 
-* **Target registry** — ``target`` is a registry name (``core.targets``:
-  bundled covenant specs plus ``register``-ed ones, including derived
-  variants like ``"dnnweaver@pe=32x32"``), an ``ACGSpec``, or an ACG
-  instance; per-ACG pass hooks (``acg.pass_overrides`` /
-  ``acg.extra_passes``) are applied to the stock pipeline automatically,
-  so bringing your own codegen is attribute-plus-hook work, never a
-  compiler fork.
+* **Target registry** — ``target`` is a registry name
+  (``repro_torch.targets``: bundled covenant specs plus ``register``-ed
+  ones, including derived variants like ``"dnnweaver@pe=32x32"``), an
+  ``ACGSpec``, or an ACG instance; per-ACG pass hooks
+  (``acg.pass_overrides`` / ``acg.extra_passes``) are applied to the stock
+  pipeline automatically, so bringing your own codegen is
+  attribute-plus-hook work, never a compiler fork.
 * **Content-addressed cache** — artifacts are keyed by (codelet fingerprint,
   ACG fingerprint, options fingerprint, pipeline fingerprint); a repeated
   ``compile`` of the same inputs returns the *same artifact object* without
@@ -84,10 +84,9 @@ def acg_fingerprint(acg: ACG) -> str:
 def compile_key(codelet_or_layer, target, options: CompileOptions | None
                 = None, pipeline: Pipeline | None = None) -> str:
     """The content-addressed key ``compile(...)`` would file this compile
-    under, *without compiling* — the work-unit identity of a sweep
-    coordinator (the reference's ``core/sweep.py``): coordinators dedup
-    against the store and partition work by this key before any worker
-    runs."""
+    under, *without compiling* — the work-unit identity of the sweep
+    coordinator (``core/sweep.py``): coordinators dedup against the
+    store and partition work by this key before any worker runs."""
     cdlt = _resolve_codelet(codelet_or_layer)
     acg, acg_fp = _resolve_target(target)
     opts = options if options is not None else CompileOptions()
@@ -381,8 +380,8 @@ def compile(codelet_or_layer, target="hvx",
     target, returning a cached ``CompiledArtifact``.
 
     ``target`` is a registry name — including a derived-variant name such
-    as ``"dnnweaver@pe=32x32"`` (see ``core.targets``) — an ``ACGSpec``,
-    or an ACG instance.
+    as ``"dnnweaver@pe=32x32"`` (see ``repro_torch.targets``) — an
+    ``ACGSpec``, or an ACG instance.
 
     ``pipeline`` overrides the stock pass pipeline entirely; otherwise the
     default pipeline plus the target's ACG hooks is used.
@@ -454,8 +453,55 @@ def compile(codelet_or_layer, target="hvx",
     return art
 
 
+def _parallel_prefill(items: list, target, options: CompileOptions | None,
+                      workers: int) -> None:
+    """Back half of ``compile_many(parallel=N)``: compile the batch's
+    still-cold, process-portable units in N worker processes *through the
+    shared artifact store*, so the in-order sequential pass that follows
+    restores every one of them warm (zero pipeline stages) and returns
+    real ``CompiledArtifact`` objects from this process's cache tiers."""
+    from . import sweep as sweep_mod
+
+    store = store_mod.resolve(options.store if options is not None else None)
+    if store is None:
+        import warnings
+        warnings.warn(
+            "compile_many(parallel=...) needs a shared disk store "
+            "(CompileOptions(store=...) or REPRO_TORCH_CACHE_DIR) to hand "
+            "results back; compiling sequentially instead")
+        return
+    opts = options if options is not None else CompileOptions()
+    base = dataclasses.replace(opts, store=None)
+    units: dict[str, "sweep_mod.WorkUnit"] = {}
+    for item in items:
+        if isinstance(item, tuple) and len(item) == 2:
+            it, tgt = item
+        else:
+            it, tgt = item, target
+        if not isinstance(tgt, str):
+            continue  # live ACG/spec targets stay in-process
+        try:
+            workload = sweep_mod.workload_of(it)
+        except TypeError:
+            continue
+        if workload[0] == "local":
+            continue  # raw codelets cannot cross a process boundary
+        key = compile_key(sweep_mod.build_workload(workload), tgt, base)
+        if key in _CACHE or key in store:
+            continue
+        units.setdefault(key, sweep_mod.WorkUnit(
+            layer=sweep_mod._workload_label(workload), target=tgt,
+            workload=workload, options=base, key=key))
+    if not units:
+        return
+    todo = sorted(units.values(), key=lambda u: u.key)
+    sweep_mod._process_backend(sweep_mod.partition(todo, workers), store,
+                               sweep_mod.plan_id(todo))
+
+
 def compile_many(items: Iterable, target="hvx",
-                 options: CompileOptions | None = None,
+                 options: CompileOptions | None = None, *,
+                 parallel: int | None = None,
                  **kwargs) -> list[CompiledArtifact]:
     """Batch compile: one artifact per item, in order, sharing the cache.
 
@@ -470,8 +516,17 @@ def compile_many(items: Iterable, target="hvx",
             "DLRM-FC2",                          # uses ``target``
         ], target="hvx")
 
-    The reference's ``parallel=N`` fan-out over worker processes needs its
-    sweep coordinator, which this package does not hold yet."""
+    ``parallel=N`` (with a disk store configured) fans the cold units of
+    the batch out across N worker processes first — the ``core/sweep.py``
+    process backend over the shared ``ArtifactStore`` — then the ordered
+    results below are pure warm restores.  Items the coordinator cannot
+    ship to a worker (raw Codelets, live ACG targets, custom pipelines)
+    simply compile sequentially here, same semantics, one process."""
+    items = list(items)
+    if parallel is not None and int(parallel) > 1 \
+            and kwargs.get("cache", True) \
+            and kwargs.get("pipeline") is None:
+        _parallel_prefill(items, target, options, int(parallel))
     arts = []
     for item in items:
         if isinstance(item, tuple) and len(item) == 2:

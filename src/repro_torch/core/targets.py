@@ -22,8 +22,8 @@ The port's copy of ``repro.core.targets``, with the same logic.
 """
 from __future__ import annotations
 
-from ..targets import H100_SPEC
 from .acg import ACG
+from .h100 import H100_SPEC
 from .spec import (ACGSpec, BINARY, UNARY, acg_spec, parse_overrides, scap,
                    scu, sedge, smem, sop)
 
@@ -237,7 +237,7 @@ TPU_V5E_SPEC = acg_spec(
 )
 
 
-# the port's own covenant, ``repro_torch.targets.H100_SPEC``, beside the
+# the port's own covenant, ``core.h100.H100_SPEC``, beside the
 # reference's four (which never registers it)
 BUNDLED_SPECS: dict[str, ACGSpec] = {
     s.name: s for s in (EXAMPLE_SPEC, DNNWEAVER_SPEC, HVX_SPEC, TPU_V5E_SPEC,

@@ -66,24 +66,33 @@ def lm_layer_gemms(cfg, tokens: int, lm_head: bool = True) -> list[LayerGemm]:
 
 def compile_layer_gemms(cfg, tokens: int, target: str = "h100",
                         options: CompileOptions | None = None,
+                        parallel: int | None = None,
                         ) -> list[tuple[LayerGemm, "core.CompiledArtifact"]]:
     """Compile every block GEMM of ``cfg`` through
     ``repro_torch.compile_many`` (shared content-addressed cache, optional
     disk store and search).  ``target`` is any name of the port's registry
-    (``core.targets``), derived-variant names included."""
+    (``repro_torch.targets``), derived-variant names included.
+
+    ``parallel=N`` (with a disk store configured) fans cold compiles out
+    across N worker processes; ``LayerGemm`` records serialise into sweep
+    work units, so big-vocab heads and deep FFN stacks compile
+    concurrently while results stream back through the shared store."""
     gemms = lm_layer_gemms(cfg, tokens)
-    arts = core.compile_many(gemms, target=target, options=options)
+    arts = core.compile_many(gemms, target=target, options=options,
+                             parallel=parallel)
     return list(zip(gemms, arts))
 
 
 def variant_report(cfg, tokens: int, targets: list[str],
-                   options: CompileOptions | None = None) -> str:
+                   options: CompileOptions | None = None,
+                   parallel: int | None = None) -> str:
     """Per-GEMM cycles across several targets or architecture variants in
     one batched heterogeneous ``compile_many``: the design-space view of a
-    serving config."""
+    serving config (``parallel=N`` shards it across worker processes over
+    the shared artifact store)."""
     gemms = lm_layer_gemms(cfg, tokens)
     pairs = [(g, t) for t in targets for g in gemms]
-    arts = core.compile_many(pairs, options=options)
+    arts = core.compile_many(pairs, options=options, parallel=parallel)
     width = max(len(g.name) for g in gemms)
     lines = [f"[covenant] {cfg.name} variants, tokens={tokens}"]
     header = "  " + " " * width + "".join(f" {t:>24s}" for t in targets)

@@ -1,102 +1,134 @@
-"""The ``h100`` covenant: an NVIDIA H100 SXM as an ACG spec.
+"""``repro_torch.targets`` — the string-addressable accelerator-target
+registry, and the port's ``h100`` covenant (``H100``, ``H100_SPEC``).
 
-This is the Hopper counterpart of ``TPU_V5E_SPEC`` (``repro/core/targets.py``),
-built with the copied spec builders.  The Covenant Algorithm-1 tiler runs
-against it to choose the block geometry of the port's Hopper kernels, as it
-runs against ``tpu_v5e`` to choose the Pallas ``BlockSpec``s.
+Everywhere the driver API accepts a target, it accepts a *name* resolved
+here: bundled covenant specs (``example``, ``dnnweaver``, ``hvx``,
+``tpu_v5e``, ``h100``), specs you ``register()``, and derived-variant
+names (``"dnnweaver@pe=32x32"``, ``"hvx@issue_slots=8,VRF.depth=64"``)
+that ``spec.derive()`` materializes on the fly — the paper's adaptability
+claim ("design changes without complete compiler redevelopment") as a
+runnable sweep over architecture families.
 
-The graph models what one thread block on one streaming multiprocessor (SM)
-programs: device memory (HBM) -> shared memory (SMEM) -> registers (RF),
-a tensor-core unit (TC) whose GEMM capability has the shape of a warpgroup
-MMA, and the SIMT lanes for elementwise work.  Numbers come from NVIDIA's
-H100 SXM data sheet and Hopper white paper; the per-cycle edge rates are
-derived below the way the ``tpu_v5e`` comment derives its own.
+    import repro_torch
+    from repro_torch import targets
+    from repro_torch.core.spec import acg_spec, scap, scu, sedge, smem, sop
+
+    targets.register(acg_spec("mynpu", memories=[...], computes=[...],
+                              edges=[...]))
+    art = repro_torch.compile("BERT-LG-GEMM1", "mynpu")          # by name
+    art32 = repro_torch.compile("BERT-LG-GEMM1", "mynpu@pe=32x32")  # variant
+
+As a module, it validates every bundled spec::
+
+    PYTHONPATH=src python -m repro_torch.targets            # validate + sweep
+    PYTHONPATH=src python -m repro_torch.targets --no-sweep # structural only
+
+The port's copy of ``repro.targets``, with the same logic; the ``h100``
+spec itself is ``core.h100``'s.
 """
 from __future__ import annotations
 
-from .core.acg import ACG
-from .core.spec import BINARY, UNARY, acg_spec, scap, scu, sedge, smem, sop
+from .core.covenant import (CovenantError, CovenantViolation, check_covenant,
+                            validate_acg)
+from .core.h100 import H100, H100_SPEC, h100_acg
+from .core.spec import (ACGSpec, SpecError, acg_spec, parse_overrides,
+                        validate_spec)
+from .core.targets import (BUNDLED_SPECS, TARGETS, get_spec, get_target,
+                           list_targets, register_spec)
 
-# Hardware constants of one H100 SXM card (data sheet, dense rates).
-H100 = dict(
-    sms=132,
-    peak_bf16_flops=989e12,     # FLOP/s, tensor cores
-    peak_i8_ops=1979e12,        # OP/s, tensor cores
-    peak_f32_flops=67e12,       # FLOP/s, SIMT lanes (no TF32)
-    hbm_bw=3.35e12,             # B/s
-    hbm_bytes=80 * 2**30,
-    smem_bytes_per_block=232_448,   # 227 KB opt-in dynamic shared memory
-    # tensor-core clock implied by the bf16 peak: 132 SMs x 4096 dense bf16
-    # FLOP per SM-cycle (4 tensor cores x 512 FMA) -> 1.83 GHz
-    clock_hz=989e12 / (132 * 4096),
-)
-
-# * HBM -> SMEM: 3.35 TB/s / 132 SMs / 1.83 GHz ~= 13.9 B per SM-cycle =>
-#   112 bits per transfer op (bandwidth only drives cost, not correctness).
-# * SMEM <-> TC/RF: 32 banks x 4 B = 128 B per cycle => 1024 bits.
-# * RF <-> TC/SIMT: a warpgroup's 4 x 32 lanes x 32 bits => 4096 bits.
-# * HBM: 32 B sector = data_width 256 bits; a 128 B line is one element.
-# * SMEM: 32 banks of 4 B; depth covers the 227 KB a block may opt in to.
-# * RF: the accumulator budget of one 256-thread block, 64 of each thread's
-#   255 registers (the SM has 256 KB; the rest holds addresses and operands).
-# * TC: warpgroup MMA, 64 rows x up to 256 columns, k16 for bf16 (k32 for
-#   i8); 64*256*16 MACs at 2048 bf16 MAC per SM-cycle = 128 cycles.
-# * SIMT: 128 FP32 lanes per SM.
-H100_SPEC = acg_spec(
-    "h100",
-    memories=[
-        smem("HBM", data_width=256, banks=4,
-             depth=(80 * 2**30) // 128, offchip=True),
-        smem("SMEM", data_width=32, banks=32, depth=232_448 // 128),
-        smem("RF", data_width=32, banks=32, depth=(256 * 64 * 4) // 128),
-    ],
-    computes=[
-        scu("TC", [
-            scap("GEMM", sop("f32", 64, 256),
-                 [sop("bf16", 64, 16), sop("bf16", 16, 256),
-                  sop("f32", 64, 256)],
-                 cycles=128, geometry=(64, 256, 16)),
-            scap("MAC", sop("f32", 64, 256),
-                 [sop("bf16", 64, 16), sop("bf16", 16, 256),
-                  sop("f32", 64, 256)],
-                 cycles=128, geometry=(64, 256, 16)),
-            scap("MMUL", sop("f32", 64, 256),
-                 [sop("bf16", 64, 16), sop("bf16", 16, 256)],
-                 cycles=128, geometry=(64, 256, 16)),
-            scap("GEMM", sop("i32", 64, 256),
-                 [sop("i8", 64, 32), sop("i8", 32, 256),
-                  sop("i32", 64, 256)],
-                 cycles=128, geometry=(64, 256, 32)),
-        ], slot="tc"),
-        scu("SIMT", [
-            *(scap(n, sop("f32", 128), [sop("f32", 128)] * 2)
-              for n in BINARY),
-            *(scap(n, sop("f32", 128), [sop("f32", 128)]) for n in UNARY),
-            scap("MAC", sop("f32", 128), [sop("f32", 128)] * 3,
-                 geometry=(1, 128, 1)),
-            *(scap(n, sop("i32", 128), [sop("i32", 128)] * 2)
-              for n in BINARY),
-        ], slot="simt"),
-    ],
-    edges=[
-        sedge("HBM", "SMEM", bandwidth=112, bidir=True),
-        sedge("SMEM", "TC", bandwidth=1024),
-        sedge("SMEM", "RF", bandwidth=1024, bidir=True),
-        sedge("RF", "TC", bandwidth=4096, bidir=True),
-        sedge("RF", "SIMT", bandwidth=4096, bidir=True),
-    ],
-    # wgmma reads A and B from shared memory and keeps the sum in registers
-    operand_ports={
-        ("TC", "GEMM"): ("SMEM", "SMEM", "RF"),
-        ("TC", "MAC"): ("SMEM", "SMEM", "RF"),
-        ("TC", "MMUL"): ("SMEM", "SMEM", "RF"),
-    },
-    addr_bits=32,
-)
+# The facade API: names are the addressing scheme everywhere.
+get = get_target
+register = register_spec
 
 
-def h100_acg() -> ACG:
-    return ACG.from_spec(H100_SPEC)
+def list():  # noqa: A001 - deliberate: ``targets.list()`` reads well
+    """Sorted names of every registered target."""
+    return list_targets()
 
 
-__all__ = ["H100", "H100_SPEC", "h100_acg"]
+def derive(name: str, **overrides) -> ACGSpec:
+    """Derived variant of a registered target, as a spec:
+    ``derive("dnnweaver", pe="32x32")``."""
+    return get_spec(name).derive(**overrides)
+
+
+# ---------------------------------------------------------------------------
+# validate every bundled spec + a small derived-variant sweep
+# ---------------------------------------------------------------------------
+
+
+def validate_bundled(sweep: bool = True, emit=print) -> int:
+    """Load every bundled spec, run ``validate_spec`` + ``validate_acg``,
+    and (optionally) push a 2-variant x 3-layer derived sweep through the
+    driver as a smoke test.  Returns the number of problems found."""
+    from .core import driver
+
+    problems = 0
+    for name, spec in sorted(BUNDLED_SPECS.items()):
+        errs = validate_spec(spec, raise_on_error=False)
+        if not errs:
+            try:
+                acg = get_target(name)
+            except (SpecError, KeyError) as e:
+                errs = getattr(e, "problems", None) or [str(e)]
+            else:
+                errs = validate_acg(acg, raise_on_error=False)
+                if spec.fingerprint() != acg.to_spec().fingerprint():
+                    errs.append(
+                        "spec does not round-trip through ACG.from_spec")
+        for e in errs:
+            emit(f"FAIL {name}: {e}")
+        problems += len(errs)
+        if not errs:
+            emit(f"ok   {name}: valid spec, fingerprint "
+                 f"{spec.fingerprint()[:12]}, {len(spec.mnemonics)} "
+                 f"mnemonics")
+    if not sweep:
+        return problems
+    layers = ["DLRM-FC1", "DLRM-FC2", "DLRM-FC3"]
+    # variants chosen to perturb the cost report, not just the key: a PE
+    # rescale changes compute granularity, an edge re-rate changes the
+    # transfer schedule
+    variants = ["dnnweaver@pe=32x32", "hvx@edge.L2.VRF.bandwidth=512"]
+    pairs = [(layer, v) for v in variants for layer in layers]
+    arts = driver.compile_many(pairs)
+    for (layer, variant), art in zip(pairs, arts):
+        base = driver.compile(layer, variant.partition("@")[0])
+        distinct = art.key != base.key and art.cycles() != base.cycles()
+        status = "ok  " if distinct else "FAIL"
+        if not distinct:
+            problems += 1
+        emit(f"{status} {layer} @ {variant}: {art.cycles():.0f} cyc "
+             f"(base {base.cycles():.0f}), key {art.key[:12]} vs "
+             f"{base.key[:12]}")
+    return problems
+
+
+def _main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.targets",
+        description="validate the bundled covenant specs")
+    ap.add_argument("--no-sweep", action="store_true",
+                    help="skip the derived-variant compile sweep")
+    args = ap.parse_args(argv)
+    problems = validate_bundled(sweep=not args.no_sweep)
+    if problems:
+        print(f"targets-validate: {problems} problem(s)")
+        return 1
+    print("targets-validate: all bundled specs valid")
+    return 0
+
+
+__all__ = [
+    "ACGSpec", "BUNDLED_SPECS", "CovenantError", "CovenantViolation", "H100",
+    "H100_SPEC", "SpecError", "TARGETS", "acg_spec", "check_covenant",
+    "derive", "get", "get_spec", "get_target", "h100_acg", "list",
+    "list_targets", "parse_overrides", "register", "register_spec",
+    "validate_acg", "validate_bundled", "validate_spec",
+]
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

@@ -1603,3 +1603,35 @@ def test_layer_report_times_each_gemm_beside_its_prediction(cuda, tokens):
     before = matmul.launches
     other = layers.layer_report(cfg, tokens, "hvx", device=cuda)
     assert "predicted" not in other and matmul.launches == before
+
+
+def test_parallel_compile_after_cuda_init_on_card(cuda, tmp_path):
+    """``compile_layer_gemms(..., parallel=2)`` from a process that has
+    already launched a kernel (as a server calling ``variant_report`` does)
+    forks its compile workers after CUDA is up: the workers never touch
+    the card, finish within 60 s and give the serial compile's cycles."""
+    import threading
+
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.layers import compile_layer_gemms
+
+    torch.ones(8, device=cuda).add_(1)
+    torch.cuda.synchronize()
+    assert torch.cuda.is_initialized()
+    cfg = get_config("qwen3-0.6b")
+    opts = repro_torch.CompileOptions(store=str(tmp_path / "store"))
+    repro_torch.clear_cache()
+    done = {}
+    worker = threading.Thread(target=lambda: done.update(
+        pairs=compile_layer_gemms(cfg, 4, options=opts, parallel=2)),
+        daemon=True)
+    worker.start()
+    worker.join(timeout=60)
+    assert not worker.is_alive(), "parallel=2 compile still running at 60 s"
+    arts = [art for _, art in done["pairs"]]
+    assert all(art.ctx.executed == [] for art in arts)
+    assert repro_torch.cache_stats()["store_hits"] == len(arts)
+    repro_torch.clear_cache()
+    serial = [art.cycles() for _, art in compile_layer_gemms(cfg, 4)]
+    assert [art.cycles() for art in arts] == serial

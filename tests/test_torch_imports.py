@@ -49,11 +49,14 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "repro_torch.configs.whisper_base",
                 "repro_torch.configs.paligemma_3b",
                 "repro_torch.launch.attn_probes",
-                "repro_torch.launch.ssd_probes"} | {
+                "repro_torch.launch.ssd_probes", "repro_torch.sweep"} | {
         f"repro_torch.core.{m}" for m in (
             "driver", "pipeline", "passes", "codegen", "cost", "stream",
             "interp", "semantics", "covenant", "search", "store",
-            "targets")}
+            "targets", "sweep", "h100")} | {
+        f"repro_torch.examples.{m}" for m in (
+            "quickstart", "compile_layers", "new_accelerator",
+            "sweep_variants", "warm_start_search", "serve_lm", "train_lm")}
     assert expected <= set(res["modules"])
 
 
