@@ -45,8 +45,8 @@
    attention once per shared-block use of each batch, flash decode once
    per use of each decode step, at head_dim 160, checked first), compares
    the kernel path with the plain path (gated in f32, printed in bf16
-   beside the bf16 model's own spread) and profiles one prefill; each
-   model is freed before the next loads;
+   beside the bf16 model's own spread); each model is freed before the
+   next loads;
 8. trains mamba2-2.7b, then zamba2-2.7b: the SSD kernel at the train
    shape (2 x 1024 tokens, bf16) and for zamba2 the LSE forward and the
    backward at head dim 160; one train step at full width and reduced
@@ -64,7 +64,7 @@
    then ``launch.serve`` with every counter from 0, flash attention
    required once per layer of each batch and flash decode once per layer
    of each decode step, the kernel path against the plain path in bf16
-   beside the plain path's own one-ulp spread, and a profiled prefill;
+   beside the plain path's own one-ulp spread;
 10. serves the MoE family, deepseek-moe-16b then olmoe-1b-7b, at full
    width and depth with the same traffic, each freed before the next
    loads: their GEMM, attention (head dim 128, group 1) and decode shapes
@@ -77,8 +77,7 @@
    kernel path against the plain path gated in f32 (olmoe at full depth,
    deepseek at 4 layers) and printed in bf16 at full depth beside the
    plain path's own one-ulp spread and the (token, expert) assignments
-   that differ between the paths in each layer; a profiled prefill and 4
-   profiled decode steps;
+   that differ between the paths in each layer;
 11. serves whisper-base, then paligemma-3b, at full width and depth,
    with seeded random bf16 weights
    (whisper: 16 requests, batch 8 of (8, 1500, 512) frames, prompt 4, 128
@@ -97,8 +96,7 @@
    encoder layer, and each decoder layer's self and cross attention) and
    flash decode once per attention of each decode step; the kernel path
    against the plain path over the prefill and 8 decode steps, gated in
-   f32 (1e-4) and in bf16 (beside the plain path's own one-ulp spread); a
-   profiled prefill, and for whisper 4 profiled decode steps;
+   f32 (1e-4) and in bf16 (beside the plain path's own one-ulp spread);
 12. trains whisper-base, then paligemma-3b, at full width and depth, each
    freed before the next loads: first the layer report's GEMMs at the
    train tokens, and the LSE forward and the backward at their train
@@ -116,7 +114,6 @@
    tokens with (8, 1500, 512) frames, paligemma 4 x 256 with (4, 256,
    1152) patches), no checkpoint, every counter from 0, the LSE forward
    and the backward required exactly ``train_attention_launches`` times;
-   and one profiled train step each;
 13. trains olmoe-1b-7b, deepseek-moe-16b, stablelm-12b, gemma3-12b and
    command-r-plus-104b at full width and reduced depth (``TRAIN_CONFIGS``:
    8, 6, 10, 12 and 1 layers; 2 x 2048 tokens, command-r 1 x 2048), each
@@ -134,7 +131,7 @@
    --n-layers`` for 3 steps, no checkpoint, every counter from 0, the LSE
    forward and the backward exactly ``train_attention_launches`` times,
    none of the other attention and SSD kernels, the peak device memory at
-   most 70 GiB; and one profiled train step each;
+   most 70 GiB;
 14. the Covenant compiler on the card: compiles each of the ten configs'
    block GEMMs at full width against ``h100`` (``repro_torch.compile``) at
    the decode batch of its serve phase and the tokens a step of its train
@@ -213,6 +210,7 @@ from repro_torch.kernels.tiling import (  # noqa: E402
     attention_blocks, attention_bwd_blocks, attention_bwd_mma_blocks,
     attention_mma_blocks, decode_block_kv, gemm_blocks, ssd_mma_blocks)
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.attn_probes import bf16_gate  # noqa: E402
 from repro_torch.launch.layers import (  # noqa: E402
     DEVICE_WINDOWS, PROFILER_WINDOWS, compile_layer_gemms, device_ms,
     lm_layer_gemms, mean_ms, predicted_ms, profile_window)
@@ -609,8 +607,9 @@ def check_attention(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=PROMPT,
     got = run()
     want = flash_attention_plain(qf, kf, vf, causal=causal,
                                  window=window).reshape(q.shape)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
+    err, within = attn_atol(got, want, lambda: flash_attention_plain(
+        qf.float(), kf.float(), vf.float(), causal=causal,
+        window=window).reshape(q.shape))
     rel = rel_l2(got, want)
     del got, want
     same = bit_equal(run)
@@ -641,8 +640,7 @@ def check_attention(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=PROMPT,
             f"B{b} Hq{hq} Hkv{hkv} {seqs} D{d} {mode} "
             f"{'bf16' if bf16 else 'f32'} b{bq}x{bkv} "
             f"{'bit-equal' if same else 'NOT bit-equal'}", err=err,
-            ok=(err <= (ATTN_BF16_ATOL if bf16 else ATTN_F32_ATOL)
-                and rel <= ATTN_REL_L2[dtype] and same),
+            ok=within and rel <= ATTN_REL_L2[dtype] and same,
             tol=ATTN_BF16_ATOL if bf16 else ATTN_F32_ATOL, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
@@ -667,8 +665,9 @@ def check_decode(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=MAX_LEN,
                   v.reshape(b * hkv, s, d))
     want = flash_decode_plain(qg, kf, vf, kv_len,
                               kv_heads=hkv).reshape(b, hq, d)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
+    err, within = attn_atol(got, want, lambda: flash_decode_plain(
+        qg.float(), kf.float(), vf.float(), kv_len,
+        kv_heads=hkv).reshape(b, hq, d))
     rel = rel_l2(got, want)
     same = bit_equal(run)
     ms = mean_ms(run, dev, 50)
@@ -691,11 +690,38 @@ def check_decode(rec: Record, dev, gen, b=BATCH, hq=16, hkv=8, s=MAX_LEN,
     rec.add("flash_decode",
             f"B{b} Hq{hq} Hkv{hkv} S{s} D{d} {'bf16' if bf16 else 'f32'} "
             f"ragged split{bkv} {'bit-equal' if same else 'NOT bit-equal'}",
-            err=err, ok=err <= tol and rel <= ATTN_REL_L2[dtype] and same,
+            err=err, ok=within and rel <= ATTN_REL_L2[dtype] and same,
             tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
             library_device_ms=library_dev_ms, rel_l2=rel,
             rel_tol=ATTN_REL_L2[dtype])
+
+
+def attn_atol(got, want, want_f32) -> tuple[float, bool]:
+    """(largest error, within the atol gate) of an attention output (or a
+    list: dq, dk, dv) against its plain version.  f32: |got - want| at
+    most ``ATTN_F32_ATOL``.  bf16: held against the plain version computed
+    in f32 on the same bf16 inputs (``want_f32()``), each element within
+    max(``ATTN_BF16_ATOL``, one bf16 ulp of the f32 value)
+    (``attn_probes.bf16_gate``): 2e-2 below magnitude 4, one ulp (2^-5)
+    from 4 to 8, where 2e-2 is under the output's resolution."""
+    torch.cuda.synchronize()
+    many = not isinstance(got, torch.Tensor)
+    gl, wl = (list(got), list(want)) if many else ([got], [want])
+    if gl[0].dtype == torch.bfloat16:
+        return bf16_gate(gl, list(want_f32()) if many else [want_f32()],
+                         ATTN_BF16_ATOL)
+    err = max(float((a.float() - w.float()).abs().max())
+              for a, w in zip(gl, wl))
+    return err, err <= ATTN_F32_ATOL
+
+
+def _bwd_plain_f32(q, k, v, do, **kw):
+    """The plain backward in f32 on the same inputs, after the plain LSE
+    forward in f32."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    out, lse = flash_attention_fwd_lse_plain(q, k, v, **kw)
+    return flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
 
 
 def planted_faults(dev, gen, b, hq, hkv, d, sk, sq) -> dict:
@@ -723,23 +749,30 @@ def planted_faults(dev, gen, b, hq, hkv, d, sk, sq) -> dict:
             got = ops.covenant_decode_attention(
                 q, kp, vp, full,
                 block_kv=decode_block_kv(b * hkv, sk + pad, d, hq // hkv))
-            want = flash_decode_plain(
-                q.reshape(b * hkv, hq // hkv, d), kf, vf,
-                torch.full((b,), sk, device=dev, dtype=torch.int32),
-                kv_heads=hkv).reshape(q.shape)
+            def plain(dt, q=q):
+                return flash_decode_plain(
+                    q.reshape(b * hkv, hq // hkv, d).to(dt), kf.to(dt),
+                    vf.to(dt), torch.full((b,), sk, device=dev,
+                                          dtype=torch.int32),
+                    kv_heads=hkv).reshape(q.shape)
         else:
             q = torch.randn((b, hq, nq, d), generator=gen,
                             device=dev).to(dtype)
             got = ops.covenant_attention(q, kp, vp, causal=False)
-            want = flash_attention_plain(q.reshape(b * hq, nq, d), kf, vf,
-                                         causal=False).reshape(q.shape)
-        err, rel = float((got.float() - want.float()).abs().max()), \
-            rel_l2(got, want)
-        out[name] = dict(max_abs_err=err, rel_l2=rel, atol_caught=err > tol,
+
+            def plain(dt, q=q, nq=nq):
+                return flash_attention_plain(
+                    q.reshape(b * hq, nq, d).to(dt), kf.to(dt), vf.to(dt),
+                    causal=False).reshape(q.shape)
+        want = plain(dtype)
+        err, within = attn_atol(got, want, lambda: plain(torch.float32))
+        rel = rel_l2(got, want)
+        out[name] = dict(max_abs_err=err, rel_l2=rel, atol_caught=not within,
                          rel_caught=rel > rel_tol)
         print(f"[fault] {name} B{b} Hq{hq} Hkv{hkv} Sk{sk} D{d} bf16, keys "
               f"padded with zeros to {sk + pad} and unmasked: max_abs_err="
-              f"{err:.3e} (tol {tol}: {'caught' if err > tol else 'passes'})"
+              f"{err:.3e} (tol max({tol}, 1 ulp): "
+              f"{'passes' if within else 'caught'})"
               f" rel_l2={rel:.3e} (tol {rel_tol:.3e}: "
               f"{'caught' if rel > rel_tol else 'passes'})", flush=True)
         if rel <= rel_tol:
@@ -794,8 +827,9 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
         q, k, v, block_q=bq, block_kv=bkv, **kw)
     out, lse = run()
     want, want_lse = flash_attention_fwd_lse_plain(q, k, v, **kw)
+    err, within = attn_atol(out, want, lambda: flash_attention_fwd_lse_plain(
+        q.float(), k.float(), v.float(), **kw)[0])
     torch.cuda.synchronize()
-    err = float((out.float() - want.float()).abs().max())
     rel = rel_l2(out, want)
     lse_err = float((lse - want_lse).abs().max())
     tol = ATTN_BF16_ATOL if dtype == torch.bfloat16 else ATTN_F32_ATOL
@@ -836,7 +870,7 @@ def check_fwd_lse(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *,
             f"B{b} Hq{hq} Hkv{hkv} {seqs} D{d} {mode} {dt} "
             f"b{bq}x{bkv} (lse err {lse_err:.1e}) "
             f"{'bit-equal' if same else 'NOT bit-equal'}", err=err,
-            ok=(err <= tol and rel <= ATTN_REL_L2[dtype]
+            ok=(within and rel <= ATTN_REL_L2[dtype]
                 and lse_err <= LSE_ATOL and same), tol=tol, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
@@ -894,9 +928,8 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
         q, k, v, out, lse, do, block_q=bq, block_kv=bkv, **kw)
     got = run()
     want = flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
-    torch.cuda.synchronize()
-    err = max(float((a.float() - w.float()).abs().max())
-              for a, w in zip(got, want))
+    err, within = attn_atol(got, want, lambda: _bwd_plain_f32(
+        q, k, v, do, **kw))
     rel = max(rel_l2(a, w) for a, w in zip(got, want))
     tol = ATTN_BF16_ATOL if dtype == torch.bfloat16 else ATTN_F32_ATOL
     del got, want
@@ -953,7 +986,7 @@ def check_bwd(rec: Record, dev, gen, b, hq, hkv, s, d, dtype, *, window,
     rec.add("flash_attention_bwd",
             f"B{b} Hq{hq} Hkv{hkv} {seqs} D{d} {mode} {dt} "
             f"b{bq}x{bkv} {'bit-equal' if same else 'NOT bit-equal'}",
-            err=err, ok=err <= tol and rel <= ATTN_REL_L2[dtype] and same,
+            err=err, ok=within and rel <= ATTN_REL_L2[dtype] and same,
             tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms, main_path=main_path, device_ms=dev_ms,
             library_device_ms=library_dev_ms, rel_l2=rel,
@@ -994,15 +1027,16 @@ def planted_bwd_fault(dev, gen, b, hq, hkv, d, sk, sq) -> dict:
         wo, wlse = flash_attention_fwd_lse_plain(q, k, v, causal=False)
         want = flash_attention_bwd_plain(q, k, v, wo, wlse, do, causal=False,
                                          q_offset=sk - nq)
-        err = max(float((a.float() - w.float()).abs().max())
-                  for a, w in zip(got, want))
+        err, within = attn_atol(got, want, lambda: _bwd_plain_f32(
+            q, k, v, do, causal=False, q_offset=sk - nq))
         rel = max(rel_l2(a, w) for a, w in zip(got, want))
-        out[name] = dict(max_abs_err=err, rel_l2=rel, atol_caught=err > tol,
+        out[name] = dict(max_abs_err=err, rel_l2=rel, atol_caught=not within,
                          rel_caught=rel > rel_tol)
         print(f"[fault] {name} B{b} Hq{hq} Hkv{hkv} Sq{nq} Sk{sk} D{d} bf16, "
               f"keys padded with zeros to {sk + pad} and unmasked in the LSE "
-              f"forward and the backward: max_abs_err={err:.3e} (tol {tol}: "
-              f"{'caught' if err > tol else 'passes'}) rel_l2={rel:.3e} (tol "
+              f"forward and the backward: max_abs_err={err:.3e} (tol max("
+              f"{tol}, 1 ulp): {'passes' if within else 'caught'}) "
+              f"rel_l2={rel:.3e} (tol "
               f"{rel_tol:.3e}: {'caught' if rel > rel_tol else 'passes'})",
               flush=True)
         if rel <= rel_tol:
@@ -1265,19 +1299,19 @@ def compare_train_paths(cfg, dev) -> dict:
     return out
 
 
-def profile_train_step(cfg, dev, batch: int = TRAIN_BATCH,
-                       seq: int = TRAIN_SEQ,
-                       microbatches: int = MICROBATCHES) -> dict:
-    """One more train step of a main path's shape (kernel attention,
-    AdamW with its moments in place as ``launch.train`` has them, the
-    model's stub-frontend extras; qwen3's default: 2 microbatches of MB x
-    TRAIN_SEQ) under the profiler, after one step outside it."""
+def profile_train_step(cfg, dev) -> dict:
+    """One more train step of the main path's shape (kernel attention,
+    AdamW with its moments in place as ``launch.train`` has them, 2
+    microbatches of MB x TRAIN_SEQ) under the profiler, after one step
+    outside it.  Only phases 3 and 4 profile: later phases' busy shares
+    are PERF.md's from earlier runs, and each profiled window pauses for
+    the profiler's clock skew."""
     model = get_model(cfg, device=dev, attn="kernel")
     params = model.init_params(0)
     opt = adamw(1e-3, inplace=True)
     state = opt.init(params)
-    step = make_train_step(model.loss_fn, opt, microbatches=microbatches)
-    data = _train_batch(model, batch, seq, 0)
+    step = make_train_step(model.loss_fn, opt, microbatches=MICROBATCHES)
+    data = _train_batch(model, TRAIN_BATCH, TRAIN_SEQ, 0)
     params, state, _ = step(params, state, data)
     prof = _profile(lambda: float(step(params, state, data)[2]["loss"]),
                     f"one {cfg.name} train step")
@@ -1741,55 +1775,11 @@ def check_ssd_ref(rec: Record, dev, gen) -> None:
             library_ms=None, main_path=False)
 
 
-def _served_inputs(model, batch: int, prompt: int) -> dict:
-    """A seeded prompt batch for ``model``, with its stub frontend's
-    inputs."""
-    rng = np.random.default_rng(2)
-    toks = torch.as_tensor(rng.integers(2, model.cfg.vocab,
-                                        (batch, prompt)),
-                           device=model.device)
-    return {"tokens": toks,
-            **serve.extra_inputs(model, batch, prompt, rng)}
-
-
-def profile_prefill(model, params, prompt: int = SSM_PROMPT,
-                    max_len: int = SSM_MAX_LEN, batch: int = BATCH) -> dict:
-    """One prefill of the served shape (kernel path) under the profiler,
-    after one outside it."""
-    inputs = _served_inputs(model, batch, prompt)
-
-    def run():
-        cache = model.init_cache(batch, max_len)
-        return model.prefill(params, inputs, cache)[0]
-
-    run()
-    return _profile(run, f"{model.cfg.name} prefill")
-
-
-def profile_decode(model, params, steps: int = 4, prompt: int = DENSE_PROMPT,
-                   max_len: int = DENSE_MAX_LEN, batch: int = BATCH) -> dict:
-    """``steps`` decode steps of the served shape (kernel path) under the
-    profiler, after a prefill and the same steps outside it.  Each call
-    decodes from the prefill's cache, whose k/v rows it rewrites in
-    place."""
-    logits, cache = model.prefill(params,
-                                  _served_inputs(model, batch, prompt),
-                                  model.init_cache(batch, max_len))
-
-    def run():
-        out, c = logits, cache
-        for _ in range(steps):
-            out, c = model.decode_step(params, out.argmax(-1), c)
-
-    run()
-    return _profile(run, f"{model.cfg.name} {steps} decode steps")
-
-
 def serve_ssm(rec: Record, dev, gen, arch: str) -> dict:
     """The served path of ``arch`` at full width: its layer report's GEMM
     shapes (and, for zamba2, attention and decode at head_dim 160) checked,
     then ``launch.serve`` with every counter from 0, the launch counts
-    required, kernel path against plain path, and a profiled prefill."""
+    required, kernel path against plain path."""
     cfg = configs.get_config(arch)
     for g in lm_layer_gemms(cfg, BATCH):
         check_gemm(rec, dev, gen, g.tokens, g.n, g.k, torch.bfloat16,
@@ -1825,14 +1815,11 @@ def serve_ssm(rec: Record, dev, gen, arch: str) -> dict:
     if launches["matmul"] <= 0:
         raise AssertionError(f"{arch}: the layer report never launched "
                              "matmul")
-    compared, model, params = compare_ssm(cfg, dev)
-    prof = profile_prefill(model, params)
-    del model, params
+    compared = compare_ssm(cfg, dev)[0]
     torch.cuda.empty_cache()
     return dict(tok_per_s=stats["tok_per_s"], new_tokens=stats["new_tokens"],
                 seconds=stats["seconds"], batch_seconds=stats["batch_seconds"],
-                launches=launches, required=expected, compare=compared,
-                profile_prefill=prof)
+                launches=launches, required=expected, compare=compared)
 
 
 def compare_dense(cfg, dev, prompt: int = DENSE_PROMPT,
@@ -2030,8 +2017,7 @@ def serve_dense(rec: Record, dev, gen, arch: str, n_layers: int) -> dict:
     ``launch.serve`` with every counter from 0, the launch counts required
     (flash attention once per layer of each batch, flash decode once per
     layer of each decode step), kernel path against plain path
-    (``compare_dense``, or ``compare_moe``), and a profiled prefill (and,
-    for an MoE config, 4 profiled decode steps)."""
+    (``compare_dense``, or ``compare_moe``)."""
     cfg = configs.get_config(arch)
     if n_layers:
         cfg = cfg.replace(n_layers=n_layers)
@@ -2058,18 +2044,13 @@ def serve_dense(rec: Record, dev, gen, arch: str, n_layers: int) -> dict:
             "--device", "cuda", "--attn", "kernel", "--n-layers",
             str(n_layers)]
     launches, stats, expected = serve_counted(cfg, args)
-    compared, model, params = compare_moe(cfg, dev) \
-        if cfg.family == "moe" else compare_dense(cfg, dev)
-    prof = profile_prefill(model, params, DENSE_PROMPT, DENSE_MAX_LEN)
-    prof_decode = profile_decode(model, params) if cfg.family == "moe" \
-        else None
-    del model, params
+    compared = (compare_moe if cfg.family == "moe" else compare_dense)(
+        cfg, dev)[0]
     torch.cuda.empty_cache()
     return dict(n_layers=cfg.n_layers, tok_per_s=stats["tok_per_s"],
                 new_tokens=stats["new_tokens"], seconds=stats["seconds"],
                 batch_seconds=stats["batch_seconds"], launches=launches,
-                required=expected, compare=compared, profile_prefill=prof,
-                profile_decode=prof_decode, dispatch=dispatch)
+                required=expected, compare=compared, dispatch=dispatch)
 
 
 def attention_launches(cfg) -> tuple[int, int]:
@@ -2155,8 +2136,7 @@ def serve_encdec_vlm(rec: Record, dev, gen, arch: str) -> dict:
     image prefix and prompt at head dim 256, group 8, and its decode),
     bf16 on the main path and f32 beside it; then ``launch.serve`` with
     every counter from 0 (``serve_counted``), the kernel path against the
-    plain path (``compare_encdec_vlm``), a profiled prefill and, for
-    whisper, 4 profiled decode steps."""
+    plain path (``compare_encdec_vlm``)."""
     cfg = configs.get_config(arch)
     batch, prompt, max_new, max_len, requests = ENCDEC_VLM[arch]
     for g in lm_layer_gemms(cfg, batch):
@@ -2193,19 +2173,12 @@ def serve_encdec_vlm(rec: Record, dev, gen, arch: str) -> dict:
             str(requests), "--max-len", str(max_len), "--seed", "0",
             "--device", "cuda", "--attn", "kernel"]
     launches, stats, expected = serve_counted(cfg, args)
-    compared, model, params = compare_encdec_vlm(cfg, dev, batch, prompt,
-                                                 max_len)
-    prof = profile_prefill(model, params, prompt, max_len, batch)
-    prof_decode = profile_decode(model, params, prompt=prompt,
-                                 max_len=max_len, batch=batch) \
-        if cfg.family == "audio" else None
-    del model, params
+    compared = compare_encdec_vlm(cfg, dev, batch, prompt, max_len)[0]
     torch.cuda.empty_cache()
     return dict(n_layers=cfg.n_layers, tok_per_s=stats["tok_per_s"],
                 new_tokens=stats["new_tokens"], seconds=stats["seconds"],
                 batch_seconds=stats["batch_seconds"], launches=launches,
-                required=expected, compare=compared, profile_prefill=prof,
-                profile_decode=prof_decode, planted_faults=faults)
+                required=expected, compare=compared, planted_faults=faults)
 
 
 # ---------------------------------------------------------------------------
@@ -2302,7 +2275,7 @@ def train_encdec_vlm(rec: Record, dev, gen, arch: str) -> dict:
     left unmasked through both on purpose (``planted_bwd_fault``); then
     the gate step
     (``compare_encdec_vlm_train_paths``), ``launch.train`` at full width
-    and depth (``train_encdec_vlm_main_path``) and one profiled step."""
+    and depth (``train_encdec_vlm_main_path``)."""
     cfg = configs.get_config(arch)
     batch_n, seq, _ = ENCDEC_VLM_TRAIN[arch]
     for g in lm_layer_gemms(cfg, batch_n * seq):
@@ -2326,8 +2299,7 @@ def train_encdec_vlm(rec: Record, dev, gen, arch: str) -> dict:
                                **heads) if cfg.family == "audio" else None
     gates = compare_encdec_vlm_train_paths(arch, dev)
     run = train_encdec_vlm_main_path(arch)
-    prof = profile_train_step(cfg, dev, batch_n, seq, 1)
-    return dict(gates=gates, planted_faults=faults, profile=prof, **run)
+    return dict(gates=gates, planted_faults=faults, **run)
 
 
 # ---------------------------------------------------------------------------
@@ -2449,7 +2421,7 @@ def train_config(rec: Record, dev, gen, arch: str, seen: set) -> dict:
     (``compare_config_train_paths``); ``launch.train --n-layers`` for
     ``TRAIN_CONFIG_STEPS`` steps, the LSE forward and the backward exactly
     ``train_attention_launches`` times, no other attention or SSD kernel,
-    the peak at most ``TRAIN_PEAK_GIB``; and one profiled step."""
+    the peak at most ``TRAIN_PEAK_GIB``."""
     depth, batch_n, seq, _, _, _ = TRAIN_CONFIGS[arch]
     cfg = configs.get_config(arch).replace(n_layers=depth)
     for g in lm_layer_gemms(cfg, batch_n * seq):
@@ -2474,8 +2446,7 @@ def train_config(rec: Record, dev, gen, arch: str, seen: set) -> dict:
     run = train_full_depth(f"config-train {arch}", arch, batch_n, seq,
                            TRAIN_CONFIG_STEPS, required, n_layers=depth,
                            peak_gib=TRAIN_PEAK_GIB)
-    prof = profile_train_step(cfg, dev, batch_n, seq, 1)
-    return dict(gates=gates, dispatch_backward=backward, profile=prof, **run)
+    return dict(gates=gates, dispatch_backward=backward, **run)
 
 
 # ---------------------------------------------------------------------------
@@ -2868,6 +2839,208 @@ def late_child(gen, t0: float) -> dict:
     return dict(late, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the sharded main path, in a one-rank NCCL group under torchrun
+# ---------------------------------------------------------------------------
+
+SHARDED_OUT = ROOT / "build" / "sharded_phase.json"
+SHARDED_CKPT = ROOT / "build" / "sharded_ckpt"
+SHARDED_STEPS = 3          # within the warmup, where the lr is the 6-step
+SHARDED_TIMEOUT = 300      # run's too, so phase 4's first losses compare
+# qwen3's decode shapes for the collectives: batch 4, 16 heads (the 8 kv
+# heads repeated, as the caller does), cache 1024, head dim 128
+COLL_B, COLL_H, COLL_S, COLL_D = BATCH, 16, MAX_LEN, 128
+COLL_LENS = (1, 300, 777, 1024)
+
+
+def sharded_main(out_path: str) -> None:
+    """``torchrun --standalone --nproc-per-node 1 chip_smoke.py --sharded
+    OUT``, which ``sharded_child`` starts after phase 15: the one-rank NCCL
+    group and the (1, 1) mesh of ``launch.train --model-axis 1`` (qwen3 at
+    full width and depth, phase 4's batches, every counter from 0), its
+    last checkpoint restored onto the mesh by ``restore_sharded`` and its
+    arrays placed onto one device as ``restore_sharded`` places them (each
+    held to the arrays the file holds, bit for bit), the served
+    tokens under the launcher, and both collectives at qwen3's decode
+    shapes.  Writes what the parent checks to ``out_path``."""
+    dev = card()
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.convert import to_reference_layout
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.runtime import collectives, sharding
+    t0 = time.perf_counter()
+    out = {}
+    shutil.rmtree(SHARDED_CKPT, ignore_errors=True)
+    for fn in KERNEL_FNS:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    args = [a if a != str(CKPT_DIR) else str(SHARDED_CKPT) for a in TRAIN_ARGS]
+    stats = train.main(args + ["--steps", str(SHARDED_STEPS),
+                               "--model-axis", "1", "--accel-target",
+                               "none"])
+    torch.cuda.synchronize()
+    rep = stats["report"]
+    out["train"] = dict(losses=rep.losses, step_seconds=rep.step_seconds,
+                        ms_per_step=stats["ms_per_step"],
+                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                        launches=stats["launches"], seconds=stats["seconds"])
+    print(f"[sharded] at {time.perf_counter() - t0:.1f} s: launch.train on "
+          f"a one-rank NCCL mesh: "
+          f"{stats['ms_per_step']:.1f} ms per step after the first, peak "
+          f"{out['train']['peak_gib']:.2f} GiB, losses {rep.losses}, "
+          f"launches {stats['launches']}", flush=True)
+    if not dist.is_initialized() or dist.get_backend() != "nccl":
+        raise AssertionError("launch.train did not start an NCCL group")
+    mesh = mesh_lib.make_host_mesh(1, device_type="cuda")
+
+    # the checkpoint of the last step, restored onto the mesh and onto one
+    # device, against its arrays as the file holds them
+    cfg = configs.get_config(ARCH)
+    with FakeTensorMode():
+        model = get_model(cfg, device="cpu")
+        params = model.init_params(0)
+        state = to_reference_layout(cfg, {"params": params,
+                                          "opt": adamw(1e-3).init(params)})
+        like = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), state)
+    del model, params, state
+    ckpt_dir = str(SHARDED_CKPT / cfg.name)
+    saved, saved_step, _ = ckpt_lib.load_checkpoint(ckpt_dir, like)
+    restored = {}
+    for where in ("mesh", "one device"):
+        if where == "mesh":
+            tree, step, _ = ckpt_lib.restore_sharded(
+                ckpt_dir, like, sharding.shardings(like, mesh))
+        else:
+            # what restore_sharded does after its read, on the arrays
+            # already read: the file is read twice in all, not three times
+            tree = tree_map(ckpt_lib.store.place_array, saved,
+                            tree_map(lambda _: dev, like))
+            step = saved_step
+        pairs = list(zip(tree_leaves(tree), tree_leaves(saved)))
+        same = all(torch.equal(ckpt_lib.store.gathered(a).cpu(), b)
+                   for a, b in pairs)
+        placed = all(isinstance(a, torch.distributed.tensor.DTensor)
+                     == (where == "mesh") for a, _ in pairs)
+        restored[where] = dict(step=step, bit_equal=same, placed=placed,
+                               leaves=len(pairs))
+        print(f"[sharded] at {time.perf_counter() - t0:.1f} s: "
+              f"restore_sharded onto {where}: step {step}, "
+              f"{len(pairs)} leaves, bit-equal {same}", flush=True)
+        del tree, pairs
+    out["restore"] = restored
+    del saved
+    shutil.rmtree(SHARDED_CKPT, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the served tokens under the launcher
+    for fn in KERNEL_FNS:
+        fn.launches = 0
+    served = serve.main(SERVE_ARGS + ["--accel-target", "none"])
+    print(f"[sharded] at {time.perf_counter() - t0:.1f} s: served",
+          flush=True)
+    out["serve"] = dict(tokens=[o.tolist() for o in served["outputs"]],
+                        launches=served["launches"],
+                        tok_per_s=served["tok_per_s"])
+
+    # the collectives on NCCL at one rank
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    g = torch.randn((1024, 2048), generator=gen, device=dev)
+    got = collectives.compressed_psum({"g": g}, mesh, "data")["g"]
+    scale = g.abs().max() / 127.0 + 1e-12
+    want = torch.clamp(torch.round(g / scale), -127, 127) * scale
+    psum_err = float((got - want).abs().max())
+    q = torch.randn((COLL_B, COLL_H, COLL_D), generator=gen, device=dev)
+    k, v = (torch.randn((COLL_B, COLL_H, COLL_S, COLL_D), generator=gen,
+                        device=dev) for _ in range(2))
+    lens = torch.tensor(COLL_LENS, device=dev, dtype=torch.int32)
+    got = collectives.sharded_decode_attention(q, k, v, lens, mesh, "model")
+    want = flash_decode_plain(
+        q.reshape(COLL_B * COLL_H, 1, COLL_D),
+        k.reshape(COLL_B * COLL_H, COLL_S, COLL_D),
+        v.reshape(COLL_B * COLL_H, COLL_S, COLL_D), lens,
+        kv_heads=COLL_H).reshape(q.shape)
+    dec_err, dec_rel = float((got - want).abs().max()), rel_l2(got, want)
+    out["collectives"] = dict(
+        compressed_psum_max_abs_err=psum_err,
+        decode_max_abs_err=dec_err, decode_rel_l2=dec_rel,
+        decode_ok=dec_err <= ATTN_F32_ATOL
+        and dec_rel <= ATTN_REL_L2[torch.float32])
+    print(f"[sharded] at {time.perf_counter() - t0:.1f} s: "
+          f"compressed_psum against the int8 round trip of g: "
+          f"max_abs_err {psum_err}; sharded_decode_attention (B{COLL_B} "
+          f"H{COLL_H} S{COLL_S} D{COLL_D} f32, lens {COLL_LENS}) against "
+          f"flash_decode's plain version: max_abs_err {dec_err:.3e} (tol "
+          f"{ATTN_F32_ATOL}), rel_l2 {dec_rel:.3e} (tol "
+          f"{ATTN_REL_L2[torch.float32]:.1e})", flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    Path(out_path).write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def sharded_child(t0: float, tstats: dict, train_launches: dict,
+                  served: dict) -> dict:
+    """Phase 16: ``sharded_main`` in a child started through ``torchrun
+    --standalone --nproc-per-node 1`` (a fresh NCCL group and profiler
+    clock), its output on this process's; then its readings against
+    phase 4's unsharded run and phase 3's tokens.  Raises unless the child
+    exits 0 and every check passes.  Returns the child's readings."""
+    torch.cuda.empty_cache()
+    SHARDED_OUT.unlink(missing_ok=True)
+    sys.stdout.flush()
+    start = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", str(ROOT / "chip_smoke.py"), "--sharded",
+         str(SHARDED_OUT)], cwd=ROOT, timeout=SHARDED_TIMEOUT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    wall = time.perf_counter() - start
+    if run.returncode != 0:
+        raise AssertionError(f"phase 16: exit {run.returncode}")
+    res = json.loads(SHARDED_OUT.read_text())
+    SHARDED_OUT.unlink()
+    tr = res["train"]
+    # the losses: bit-equal to phase 4's first steps (one rank runs the
+    # same ops on the same whole tensors; its grad norm adds the leaves'
+    # sums in the same order)
+    base = tstats["report"].losses[:SHARDED_STEPS]
+    if tr["losses"] != base:
+        raise AssertionError(f"phase 16 losses {tr['losses']} are not "
+                             f"phase 4's {base}")
+    # the launches: phase 4's for the steps run (its layer report's GEMMs,
+    # which phase 16 does not print, left out), so the flash kernels ran on
+    # the local shards and none fell back
+    want = {k: (0 if k == "matmul" else v * SHARDED_STEPS // TRAIN_STEPS)
+            for k, v in train_launches.items()}
+    if tr["launches"] != want:
+        raise AssertionError(f"phase 16 launches {tr['launches']} against "
+                             f"phase 4's {want}")
+    bad = [w for w, r in res["restore"].items()
+           if not (r["bit_equal"] and r["placed"]
+                   and r["step"] == SHARDED_STEPS)]
+    if bad:
+        raise AssertionError(f"restore_sharded onto {bad}: {res['restore']}")
+    tokens = [o.tolist() for o in served["outputs"]]
+    if res["serve"]["tokens"] != tokens:
+        raise AssertionError("launch.serve under torchrun served other "
+                             "tokens than phase 3")
+    coll = res["collectives"]
+    if coll["compressed_psum_max_abs_err"] != 0.0 or not coll["decode_ok"]:
+        raise AssertionError(f"collectives: {coll}")
+    print(f"[phase] sharded main path done in a torchrun child at "
+          f"{time.perf_counter() - t0:.1f}s ({wall:.1f} s wall): losses "
+          f"bit-equal to phase 4's {base}, launches {tr['launches']}, "
+          f"{tr['ms_per_step']:.1f} ms a step against phase 4's "
+          f"{tstats['ms_per_step']:.1f}, peak {tr['peak_gib']:.2f} GiB "
+          f"against {tstats['peak_gib']:.2f}; restored bit-equal onto the "
+          f"mesh and one device; served tokens equal to phase 3's",
+          flush=True)
+    return dict(res, wall_s=wall)
+
+
 def print_windows(where: str, dw: dict, pw: dict) -> None:
     """The counts of ``device_ms`` and profiler windows of a process."""
     print(f"[profile] device_ms windows over {where}: "
@@ -3040,6 +3213,9 @@ def main() -> None:
     print(f"[phase] sweeps and examples done at "
           f"{time.perf_counter() - t0:.1f}s ({sweep['seconds']:.1f} s)",
           flush=True)
+
+    # phase 16: the sharded main path in a one-rank NCCL group
+    sharded = sharded_child(t0, tstats, train_launches, stats)
     print_windows("this process", DEVICE_WINDOWS, PROFILER_WINDOWS)
     print_windows("phases 9-13's child", late["device_windows"],
                   late["profiler_windows"])
@@ -3051,7 +3227,8 @@ def main() -> None:
                                 *encdec_vlm.values(),
                                 *encdec_vlm_train.values(),
                                 *train_configs.values(), *covenant["cli"],
-                                sweep["serve_lm"], sweep["train_lm"])]
+                                sweep["serve_lm"], sweep["train_lm"],
+                                sharded["train"], sharded["serve"])]
     launches = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     kernels = []
     for name, meta in KERNELS.items():
@@ -3095,6 +3272,7 @@ def main() -> None:
         ssd=ssd, ssm=ssm, ssm_train=ssm_train, dense=dense, moe=moes,
         encdec_vlm=encdec_vlm, encdec_vlm_train=encdec_vlm_train,
         train_configs=train_configs, covenant=covenant, sweep=sweep,
+        sharded=sharded,
         launches=launches, late_wall_s=late["wall_s"],
         device_windows=dict(DEVICE_WINDOWS),
         profiler_windows=dict(PROFILER_WINDOWS),
@@ -3112,5 +3290,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--late"]:
         late_main(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--sharded"]:
+        sharded_main(sys.argv[2])
     else:
         main()

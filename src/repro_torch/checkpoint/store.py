@@ -11,9 +11,13 @@ an array loads back into a bf16 leaf.
 
 The layout of the tree is the caller's: the training loop writes the
 reference's stacked layer layout (``convert.to_reference_layout``), so
-checkpoints cross-load with the JAX package both ways.  The reference's
-``restore_sharded`` places arrays on a mesh and waits for the
-distribution slice.
+checkpoints cross-load with the JAX package both ways.
+
+A tree of DTensors is saved whole: every rank gathers each leaf (so every
+rank must call ``save_checkpoint``), rank 0 writes the reference layout,
+and the others wait for it at a barrier.  ``restore_sharded`` places each
+array of a checkpoint by the shardings it is given, which may be of
+another mesh than the one that saved, or plain devices.
 """
 from __future__ import annotations
 
@@ -25,8 +29,11 @@ import tempfile
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from ..tree import tree_map_with_path, tree_paths
+from ..models.common import whole
+from ..tree import tree_map, tree_map_with_path, tree_paths
 
 _SEP = "|"
 
@@ -36,10 +43,29 @@ def _key(path: tuple) -> str:
                      for k in path)
 
 
+def gathered(t: torch.Tensor) -> torch.Tensor:
+    """The whole of a DTensor as a plain tensor on its device (a
+    collective: every rank calls it), with no copy where every mesh dim
+    that splits it has one rank (``models.common.whole``); a plain tensor
+    as it is."""
+    return whole(t).to_local() if isinstance(t, DTensor) else t
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier(tree) -> None:
+    """Wait for rank 0's write when ``tree`` is distributed."""
+    if dist.is_initialized() and any(isinstance(t, DTensor)
+                                     for _, t in tree_paths(tree)):
+        dist.barrier()
+
+
 def _to_numpy(leaf) -> np.ndarray:
     if not torch.is_tensor(leaf):
         return np.asarray(leaf)
-    t = leaf.detach().cpu()
+    t = gathered(leaf).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
     return t.numpy()
@@ -78,9 +104,15 @@ def _unflatten(like, flat: dict[str, np.ndarray]):
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, extra: dict | None = None,
                     keep: int = 3) -> str:
-    """Atomically write ``tree`` (params/opt state/...) for ``step``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomically write ``tree`` (params/opt state/...) for ``step``.  A
+    tree of DTensors: gathered on every rank, written by rank 0."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if _rank() != 0:
+        for _, leaf in tree_paths(tree):
+            gathered(leaf)
+        _barrier(tree)
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         flat = _flatten(tree)
@@ -96,6 +128,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, extra: dict | None = None,
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     _gc(ckpt_dir, keep)
+    _barrier(tree)
     return final
 
 
@@ -137,4 +170,25 @@ def load_checkpoint(ckpt_dir: str, like, step: int | None = None):
     return _unflatten(like, flat), step, manifest.get("extra", {})
 
 
-__all__ = ["latest_step", "load_checkpoint", "save_checkpoint"]
+def place_array(arr: torch.Tensor, sh) -> torch.Tensor:
+    """One loaded array placed by ``sh``: anything with a ``mesh`` and
+    ``placements`` (a ``runtime.sharding.NamedSharding``; each rank keeps
+    its piece of the array it loaded), or a device."""
+    if hasattr(sh, "placements"):
+        from torch.distributed.tensor import distribute_tensor
+        dev = sh.mesh.device_type
+        return distribute_tensor(arr.to(dev), sh.mesh, sh.placements,
+                                 src_data_rank=None)
+    return arr.to(sh)
+
+
+def restore_sharded(ckpt_dir: str, like, shardings, step: int | None = None):
+    """Elastic restore: place arrays with the provided shardings (a tree
+    like ``like`` of NamedShardings, of any mesh, or of devices).  Every
+    rank reads the checkpoint.  Returns (tree, step, extra)."""
+    host_tree, step, extra = load_checkpoint(ckpt_dir, like, step)
+    return tree_map(place_array, host_tree, shardings), step, extra
+
+
+__all__ = ["gathered", "latest_step", "load_checkpoint", "place_array",
+           "restore_sharded", "save_checkpoint"]

@@ -11,9 +11,11 @@ run through the Hopper flash kernels on ``--device cuda`` (the default).
 
     PYTHONPATH=src python -m repro_torch.examples.train_lm [--steps 300]
 
-The port's copy of ``examples/train_lm.py``, on one device: the
-reference's host mesh (``make_host_mesh`` / ``use_mesh``) waits for the
-port's distribution slice.  The parameter count is that of the weight
+The port's copy of ``examples/train_lm.py``: it trains inside the host
+mesh (``make_host_mesh`` / ``use_mesh``), as the reference does, over
+every rank of the process group (``launch.mesh.init_distributed``: the
+``torchrun`` ranks, or one); the params are not placed, as the
+reference's are not.  The parameter count is that of the weight
 matrices in the port's parameter tree (the norm scales left out, as the
 reference's ``roofline.param_count`` leaves them out).
 """
@@ -24,6 +26,8 @@ import torch
 from repro_torch import configs
 from repro_torch.data import SyntheticLM
 from repro_torch.launch.layers import layer_report
+from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
+                                     use_mesh)
 from repro_torch.launch.train import kernel_launches
 from repro_torch.models import get_model
 from repro_torch.optim import adamw, cosine_schedule
@@ -68,14 +72,18 @@ def main(argv: list[str] | None = None) -> dict:
                        target=args.accel_target, device=args.device))
 
     before = kernel_launches()
-    opt = adamw(cosine_schedule(1e-3, 30, args.steps))
-    opt_state = opt.init(params)
-    step = make_train_step(model.loss_fn, opt, microbatches=MICROBATCHES)
-    data = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ_LEN,
-                       global_batch=GLOBAL_BATCH, seed=0)
-    params, opt_state, rep = train_loop(
-        step, params, opt_state, data.batch, cfg=cfg, steps=args.steps,
-        ckpt_dir=args.ckpt_dir, ckpt_every=100, log_every=25)
+    init_distributed(args.device)
+    mesh = make_host_mesh(device_type=torch.device(args.device).type)
+    with use_mesh(mesh):
+        opt = adamw(cosine_schedule(1e-3, 30, args.steps))
+        opt_state = opt.init(params)
+        step = make_train_step(model.loss_fn, opt,
+                               microbatches=MICROBATCHES)
+        data = SyntheticLM(vocab=cfg.vocab, seq_len=SEQ_LEN,
+                           global_batch=GLOBAL_BATCH, seed=0)
+        params, opt_state, rep = train_loop(
+            step, params, opt_state, data.batch, cfg=cfg, steps=args.steps,
+            ckpt_dir=args.ckpt_dir, ckpt_every=100, log_every=25)
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     launches = {k: v - before[k] for k, v in kernel_launches().items()}

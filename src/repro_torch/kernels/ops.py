@@ -5,11 +5,23 @@ The counterpart of ``repro/kernels/ops.py`` with the same signatures, less
 CUDA tensor launches the Hopper kernel or raises.  Block geometry defaults
 to the Covenant tiler's Algorithm-1 choice against the ``h100`` covenant
 (``tiling.gemm_blocks`` / ``attention_blocks`` / ``ssd_mma_blocks``).
+
+``covenant_attention``, ``covenant_decode_attention`` and ``covenant_ssd``
+also take DTensors (the sharded train step and the dry-run): each runs its
+kernel on every rank's local shard through ``local_map``, the autograd
+Functions (``FlashAttention``, the SSD's) included.  A split of the batch
+(and, for attention, of the heads) stays local; every other split is
+gathered first, since a kernel needs whole sequences.  Where q's heads are
+split over a mesh dim and k/v's are not (fewer kv heads than ranks), each
+rank takes the kv heads of its own q heads, and k/v's gradients come back
+partial over that dim.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from . import ref as _ref
 from .flash_attention import FlashAttention
@@ -59,6 +71,63 @@ def covenant_matmul(a: torch.Tensor, b: torch.Tensor, *,
     return out[:m, :n]
 
 
+def _kept(t: DTensor, dims: tuple) -> tuple:
+    """``t``'s placements with every split of a dim outside ``dims``, and
+    every partial sum, made whole."""
+    return tuple(p if isinstance(p, Shard) and p.dim in dims else Replicate()
+                 for p in t.placements)
+
+
+def _head_layout(q: DTensor, k: DTensor):
+    """(q's local placements, k/v's, k/v's gradient placements, the mesh
+    dim over which q's heads split and k/v's do not, or None)."""
+    qp = _kept(q, (0, 1))
+    kp, gp, pick = [], [], None
+    for i, (pq, pk) in enumerate(zip(qp, k.placements)):
+        if pq == Shard(1) and pk != Shard(1):
+            if pick is not None:
+                raise ValueError("q heads split over two mesh dims that do "
+                                 "not split the kv heads")
+            pick = i
+            kp.append(Replicate())
+            gp.append(Partial())
+        else:
+            kp.append(pq)
+            gp.append(pq)
+    return qp, tuple(kp), tuple(gp), pick
+
+
+def _own_kv(k: torch.Tensor, v: torch.Tensor, hq: int, hkv: int,
+            lhq: int, rank: int):
+    """The local k, v of a rank whose q heads are ``[rank * lhq, (rank + 1)
+    * lhq)`` of ``hq`` (GQA group ``hq // hkv``), from the whole ``hkv``
+    heads: a contiguous slice where its heads share whole groups, else one
+    kv head per q head (group 1)."""
+    g = hq // hkv
+    lo = rank * lhq
+    if lhq % g == 0 or g % lhq == 0:
+        a, b = lo // g, (lo + lhq - 1) // g + 1
+        return k[:, a:b], v[:, a:b]
+    idx = torch.arange(lo, lo + lhq, device=k.device) // g
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _sharded_attention(q, k, v, **kw) -> DTensor:
+    hq, hkv = q.shape[1], k.shape[1]
+    mesh = q.device_mesh
+    qp, kp, gp, pick = _head_layout(q, k)
+    rank = mesh.get_local_rank(pick) if pick is not None else 0
+
+    def run(ql, kl, vl):
+        if pick is not None:
+            kl, vl = _own_kv(kl, vl, hq, hkv, ql.shape[1], rank)
+        return covenant_attention(ql, kl, vl, **kw)
+
+    return local_map(run, out_placements=(qp,), in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, gp, gp), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 def covenant_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        causal: bool = True, window: int | None = None,
                        scale: float | None = None,
@@ -76,6 +145,9 @@ def covenant_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tiles, even past a short Sq, whose edge the kernel masks; and
     ``attention_bwd_mma_blocks`` for the backward), f32 the SIMT kernels'
     (``attention_blocks``, block_q cut to Sq; ``attention_bwd_blocks``)."""
+    if isinstance(q, DTensor):
+        return _sharded_attention(q, k, v, causal=causal, window=window,
+                                  scale=scale, blocks=blocks)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     mma = q.dtype == torch.bfloat16
@@ -110,6 +182,22 @@ def covenant_decode_attention(q: torch.Tensor, k: torch.Tensor,
                               block_kv: int = 512) -> torch.Tensor:
     """One-token GQA decode.  q: (B,Hq,D), cache k/v: (B,Hkv,S,D),
     kv_len: (B,).  Returns (B,Hq,D)."""
+    if isinstance(q, DTensor):
+        hq, hkv = q.shape[1], k.shape[1]
+        mesh = q.device_mesh
+        qp, kp, _, pick = _head_layout(q, k)
+        lp = tuple(p if p == Shard(0) else Replicate() for p in qp)
+        rank = mesh.get_local_rank(pick) if pick is not None else 0
+
+        def run(ql, kl, vl, ll):
+            if pick is not None:
+                kl, vl = _own_kv(kl, vl, hq, hkv, ql.shape[1], rank)
+            return covenant_decode_attention(ql, kl, vl, ll, scale=scale,
+                                             block_kv=block_kv)
+
+        return local_map(run, out_placements=(qp,),
+                         in_placements=(qp, kp, kp, lp), device_mesh=mesh,
+                         redistribute_inputs=True)(q, k, v, kv_len)
     b, hq, d = q.shape
     _, hkv, s, _ = k.shape
     g = hq // hkv
@@ -131,7 +219,25 @@ def covenant_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     returned one, is (b, h, p, n), as in ``ref.ssd_ref``.  S is padded to
     the chunk with dt = 0, so a padded step neither decays nor adds.  B and
     C are passed per group, unrepeated: the kernel reads group
-    ``h // (H / G)`` for head ``h``."""
+    ``h // (H / G)`` for head ``h``.  DTensors keep only their batch
+    split; A, whole on every rank, gets its gradient summed over it."""
+    if isinstance(x, DTensor):
+        bp = _kept(x, (0,))
+        args = (x, dt, A, B, C) + (() if init_state is None
+                                   else (init_state,))
+        inp = tuple((Replicate(),) * len(bp) if a is A else bp for a in args)
+        # every rank's batch adds to A's gradient
+        a_grad = tuple(Partial() if isinstance(p, Shard) else p for p in bp)
+        grads = tuple(a_grad if a is A else bp for a in args)
+
+        def run(xl, dtl, al, bl, cl, st0=None):
+            return covenant_ssd(xl, dtl, al, bl, cl, chunk=chunk,
+                                init_state=st0, return_state=return_state)
+
+        return local_map(run, out_placements=(bp, bp) if return_state
+                         else (bp,), in_placements=inp,
+                         in_grad_placements=grads, device_mesh=x.device_mesh,
+                         redistribute_inputs=True)(*args)
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     ck = min(chunk, s)

@@ -210,6 +210,27 @@ def _ulp_bf16(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
+def bf16_gate(got, want_f32, atol: float = 2e-2) -> tuple[float, bool]:
+    """The bf16 attention gate: every element of ``got`` (a tensor, or a
+    list of them) within max(``atol``, one bf16 ulp of |``want_f32``|) of
+    ``want_f32``, the plain version computed in f32 on the same bf16
+    inputs.  Below magnitude 4 an ulp is 2^-6 or less, so ``atol`` (the
+    reference's 2e-2) holds; from 4 to 8 one ulp is 2^-5, where 2e-2 is
+    under the output's resolution.  Returns (the largest |got -
+    want_f32|, whether every element passes)."""
+    if isinstance(got, torch.Tensor):
+        got, want_f32 = [got], [want_f32]
+    if len(got) != len(want_f32):
+        raise ValueError(f"{len(got)} outputs against {len(want_f32)}")
+    worst, ok = 0.0, True
+    for g, w in zip(got, want_f32):
+        w = w.float()
+        err = (g.float() - w).abs()
+        worst = max(worst, float(err.max()))
+        ok = ok and bool((err <= torch.clamp(_ulp_bf16(w), min=atol)).all())
+    return worst, ok
+
+
 def order_counts(res: dict) -> dict:
     """{"big": [n], name: {"flips", "expected", "gate", "gate_expected"}}
     for dq, dk, dv: the outputs of at least ``BIG``; of those, the ones

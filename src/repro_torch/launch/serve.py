@@ -21,10 +21,15 @@ decode batch compiled by the Covenant driver against ``--accel-target``
 skips it; an unknown name exits 2), with ``--accel-search`` through
 schedule search; against ``h100`` on a card each GEMM also runs through
 the Covenant-tiled GEMM kernel, timed beside the covenant's prediction.
+Started under ``torchrun``, it serves inside the reference's mesh context:
+the host mesh over every rank (``launch.mesh``), the weights not placed,
+as the reference does not place them, so the tokens are the unsharded
+run's.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -35,6 +40,7 @@ from ..core import CompileOptions, SearchOptions
 from ..kernels.flash_attention import flash_attention, flash_decode
 from ..kernels.matmul import matmul
 from ..kernels.ssd_scan import ssd_chunk_scan
+from . import mesh as mesh_lib
 from .layers import check_accel_target, layer_report
 from ..models import Model, get_model
 
@@ -150,10 +156,20 @@ def main(argv: list[str] | None = None) -> dict:
     prompts = [rng.integers(2, cfg.vocab, args.prompt_len)
                for _ in range(args.requests)]
     per_batch: list[float] = []
+    ctx = contextlib.nullcontext()
+    if mesh_lib.launched():
+        mesh_lib.init_distributed(args.device)
+        mesh = mesh_lib.make_host_mesh(
+            device_type=torch.device(args.device).type)
+        ctx = mesh_lib.use_mesh(mesh)
+        print(f"[serve] on the host mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     t0 = time.perf_counter()
-    outputs, total_tokens = serve(model, params, prompts, batch=args.batch,
-                                  max_new=args.max_new, max_len=args.max_len,
-                                  batch_seconds=per_batch, rng=rng)
+    with ctx:
+        outputs, total_tokens = serve(model, params, prompts,
+                                      batch=args.batch, max_new=args.max_new,
+                                      max_len=args.max_len,
+                                      batch_seconds=per_batch, rng=rng)
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -168,7 +184,7 @@ def main(argv: list[str] | None = None) -> dict:
             "seconds": dt, "tok_per_s": total_tokens / dt,
             "batch_seconds": per_batch, "launches": launches,
             "n_layers": cfg.n_layers,
-            "batches": len(outputs),
+            "batches": len(outputs), "outputs": outputs,
             "decode_steps": sum(o.shape[1] - 1 for o in outputs)}
 
 

@@ -22,6 +22,13 @@ dtype.  ``attn`` picks the path of
 every kernel of the model: the kernel path (``"kernel"``) or plain
 PyTorch (``"plain"``), for attention (``models.attention``) and the SSD
 (``models.ssm.ssd``) alike.
+
+Params and batches may also be DTensors (the sharded train step, the
+dry-run): each weight is then gathered whole where the model reads it,
+inside its layer's function (``common.at_use``, ZeRO-3's gather: a rank
+holds the weights of the layer it runs whole, the rest at their split),
+the batch keeps its split, and plain tensors made on the way (masks,
+positions) count as replicated.
 """
 from __future__ import annotations
 
@@ -29,10 +36,12 @@ import dataclasses
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import (attention, common, config, mamba, moe, paligemma, ssm,
                transformer, whisper, zamba)
 from .config import ArchConfig
+from ..tree import tree_leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,21 +78,35 @@ def get_model(cfg: ArchConfig, *, device: str | torch.device = "cuda",
     def on_device(batch: dict) -> dict:
         """The batch on ``device``; the stub frontend's extras in their
         spec's dtype (the data pipeline draws them in f32)."""
-        return {k: torch.as_tensor(v, device=device,
-                                   dtype=extra_inputs[k][1]
-                                   if k in extra_inputs else None)
-                for k, v in batch.items()}
+        def one(k, v):
+            dtype = extra_inputs[k][1] if k in extra_inputs else None
+            if isinstance(v, DTensor):
+                return v.to(dtype) if dtype is not None else v
+            return torch.as_tensor(v, device=device, dtype=dtype)
+        return {k: one(k, v) for k, v in batch.items()}
+
+    def sharded(fn):
+        """``fn(params, ...)`` with a DTensor param tree gathered at use
+        and plain tensors replicated; plain params as they are."""
+        def call(params, *rest):
+            if not any(isinstance(t, DTensor) for t in tree_leaves(params)):
+                return fn(params, *rest)
+            with common.replicating():
+                return fn(common.at_use(params), *rest)
+        return call
+
     return Model(
         cfg,
         device,
         init_params=init_params,
-        loss_fn=lambda p, b: mod.loss_fn(cfg, p, on_device(b), attn=attn),
+        loss_fn=sharded(lambda p, b: mod.loss_fn(cfg, p, on_device(b),
+                                                 attn=attn)),
         init_cache=lambda bs, ml: mod.init_cache(cfg, bs, ml, device=device),
-        prefill=lambda p, b, c: mod.prefill(
+        prefill=sharded(lambda p, b, c: mod.prefill(
             cfg, p, b["tokens"], c, *(b[n] for n in extra_inputs),
-            attn=attn),
-        decode_step=lambda p, t, c: mod.decode_step(cfg, p, t, c,
-                                                    **decode_kw),
+            attn=attn)),
+        decode_step=sharded(lambda p, t, c: mod.decode_step(cfg, p, t, c,
+                                                            **decode_kw)),
         extra_inputs=extra_inputs,
     )
 

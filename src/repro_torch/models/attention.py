@@ -25,10 +25,15 @@ as no window.  The dispatch turns 0 into None.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels import ops
 from ..kernels.tiling import decode_block_kv
+from .common import shard_act
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("kernel", "plain")
@@ -39,13 +44,38 @@ def _repeat_kv(k: torch.Tensor, hq: int) -> torch.Tensor:
     return k if hkv == hq else k.repeat_interleave(hq // hkv, dim=1)
 
 
+def _shard_heads(q, k, v):
+    """Head-parallel constraint (no-op unless the launcher configured
+    activation sharding): move the model axis from the sequence dim onto
+    heads before the attention math, so logits shard over heads instead
+    of replicating.  A head count the axis does not divide stays
+    unsharded: on the kernel path, where k/v keep their kv heads, each
+    rank then takes the kv heads of its own q heads (``kernels.ops``)."""
+    spec = ("batch", "heads", None, None)
+    return shard_act(q, spec), shard_act(k, spec), shard_act(v, spec)
+
+
 def dense_attention(q, k, v, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
     """q (B,Hq,Sq,D), k/v (B,Hkv,Sk,D).  The reference's ``q_offset``,
     ``scale`` and ``kv_len`` arguments have no caller yet."""
+    k = _repeat_kv(k, q.shape[1])
+    v = _repeat_kv(v, q.shape[1])
+    q, k, v = _shard_heads(q, k, v)
+    core = functools.partial(_dense_core, causal=causal, window=window)
+    if not isinstance(q, DTensor):
+        return core(q, k, v)
+    # each (batch row, head) attends on its own: on DTensors the math runs
+    # on each rank's rows and heads, the rest of the split made whole
+    mesh = q.device_mesh
+    qp = tuple(p if p in (Shard(0), Shard(1)) else Replicate()
+               for p in q.placements)
+    return local_map(core, out_placements=(qp,), in_placements=(qp,) * 3,
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
+def _dense_core(q, k, v, *, causal: bool, window: int) -> torch.Tensor:
     b, hq, sq, d = q.shape
-    k = _repeat_kv(k, hq)
-    v = _repeat_kv(v, hq)
     sk = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * d ** -0.5
     qpos = torch.arange(sq, device=q.device)[:, None]
@@ -94,7 +124,7 @@ def prefill_attention(q, k, v, *, causal: bool = True, window: int = 0,
     _check_impl(attn)
     if attn == "plain":
         return dense_attention(q, k, v, causal=causal, window=window)
-    return ops.covenant_attention(q, k, v, causal=causal,
+    return ops.covenant_attention(*_shard_heads(q, k, v), causal=causal,
                                   window=window or None)
 
 

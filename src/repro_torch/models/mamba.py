@@ -14,7 +14,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .common import (apply_norm, cross_entropy, embed_tokens, init_embed,
-                     init_norm, logits_from_hidden)
+                     init_norm, logits_from_hidden, shard_act)
 from .config import ArchConfig
 from .ssm import (conv_state, init_mamba_block, init_mamba_cache,
                   mamba_block, mamba_block_decode, mixer)
@@ -44,6 +44,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     x = embed_tokens(cfg, params["embed"], tokens)
     remat = cfg.remat and torch.is_grad_enabled()
     for lp in params["layers"]:
+        x = shard_act(x, ("batch", "seq", None))
         fn = functools.partial(_layer, cfg, lp, attn=attn)
         x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
     return apply_norm(cfg, params["ln_f"], x)

@@ -43,13 +43,18 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor.experimental import local_map
+from torch.utils._pytree import tree_leaves
 from torch.utils.checkpoint import checkpoint
 
 from . import transformer as dense
-from .common import (apply_mlp, apply_norm, cdt, cross_entropy,
-                     dense_init, embed_tokens, init_embed, init_mlp,
-                     init_norm, logits_from_hidden, pdt)
+from .common import (apply_mlp, apply_norm, batch_split, cdt,
+                     cross_entropy, dense_init, embed_tokens, init_embed,
+                     init_mlp, init_norm, logits_from_hidden, pdt,
+                     shard_act, split_grads, whole)
 from .config import ArchConfig
+from ..tree import tree_map
 
 # ---------------------------------------------------------------------------
 # MoE FFN
@@ -122,7 +127,7 @@ def _dispatch_block(cfg: ArchConfig, p: dict, xf: torch.Tensor
     e, k = cfg.n_experts, cfg.top_k
     dt = cdt(cfg)
     r = route(cfg, p, xf)
-    buf = torch.zeros((e + 1, r.cap, d), dtype=dt, device=xf.device)
+    buf = xf.new_zeros((e + 1, r.cap, d), dtype=dt)
     # dropped entries all land on row E, which no product reads
     buf[r.slot_e, r.slot_c] = xf[r.token].to(dt)
     h = torch.bmm(buf[:e], p["wi"].to(dt))
@@ -146,10 +151,56 @@ def _blocks(cfg: ArchConfig, xf: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return xf.split(t if t % tb else tb)
 
 
+def _on_whole(fn, cfg: ArchConfig, p: dict, x: DTensor) -> DTensor:
+    """``fn(cfg, p, x)`` on the whole of a DTensor ``x`` and of ``p``'s
+    leaves, the same on every rank; the result is replicated.  The
+    dispatch sorts and ranks all tokens of a block at once, and a block
+    spans the batch, so its capacity drops are those of the whole batch,
+    as in the reference."""
+    rep = (Replicate(),) * x.device_mesh.ndim
+    p = tree_map(whole, p)
+    n = len(tree_leaves((p, x)))
+    return local_map(lambda pl, xl: fn(cfg, pl, xl), out_placements=(rep,),
+                     in_placements=(rep,) * n, device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(p, x)
+
+
+def _rows_hold_blocks(cfg: ArchConfig, x: DTensor, rows: DTensor) -> bool:
+    """Whether every dispatch block of ``x``'s tokens lies within one
+    rank's rows of ``rows`` (``x`` split over its batch only): then each
+    rank's blocks, and so their capacity drops, are the whole batch's."""
+    t = x.shape[0] * x.shape[1]
+    tb = min(cfg.moe_block_tokens, t)
+    local = rows.to_local().shape[0] * x.shape[1]
+    return local < t and t % tb == 0 and local % tb == 0
+
+
+def _on_rows(cfg: ArchConfig, p: dict, x: DTensor) -> DTensor:
+    """``moe_ffn`` of a DTensor ``x`` on each rank's own rows, where the
+    dispatch blocks allow it (``_rows_hold_blocks``), with the layer's
+    weights whole and their gradients summed over the ranks of the
+    split; else on the whole of ``x`` (``_on_whole``)."""
+    rows = batch_split(x)
+    if not _rows_hold_blocks(cfg, x, rows):
+        return _on_whole(moe_ffn, cfg, p, x)
+    p = tree_map(whole, p)
+    rp, mesh = rows.placements, x.device_mesh
+    n = len(tree_leaves(p))
+    rep = (Replicate(),) * mesh.ndim
+    return local_map(lambda pl, xl: moe_ffn(cfg, pl, xl),
+                     out_placements=(rp,), in_placements=(rep,) * n + (rp,),
+                     in_grad_placements=(split_grads(rp),) * n + (rp,),
+                     device_mesh=mesh, redistribute_inputs=True)(p, rows)
+
+
 def moe_ffn(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """x: (B,S,D) -> the FFN output (B,S,D) in x's dtype.  Tokens are
     dispatched in blocks of ``cfg.moe_block_tokens`` so dispatch state
-    stays bounded at any prompt length (GShard-style grouping)."""
+    stays bounded at any prompt length (GShard-style grouping).  A DTensor
+    ``x`` is dispatched on each rank's rows where the blocks fall within
+    them, else whole (``_on_rows``)."""
+    if isinstance(x, DTensor):
+        return _on_rows(cfg, p, x)
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     out = torch.cat([_dispatch_block(cfg, p, blk)
@@ -162,11 +213,39 @@ def moe_ffn(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 def aux_loss(cfg: ArchConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     """The Switch load-balancing loss over all tokens of x (B,S,D): E *
     sum(fraction routed * mean probability) * k."""
+    if isinstance(x, DTensor):
+        return _aux_loss_split(cfg, p, x)
     e, k = cfg.n_experts, cfg.top_k
     probs = _router_probs(p, x.reshape(-1, x.shape[-1]))
     _, eidx = torch.topk(probs, k, dim=-1)
     frac = F.one_hot(eidx, e).float().mean((0, 1))
     return e * torch.sum(frac * probs.mean(0)) * k
+
+
+def _aux_sums(cfg: ArchConfig, router: torch.Tensor, x: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the (E,) counts of x's routed assignments, the (E,) sums of its
+    router probabilities) over x's tokens."""
+    probs = _router_probs({"router": router}, x.reshape(-1, x.shape[-1]))
+    _, eidx = torch.topk(probs, cfg.top_k, dim=-1)
+    return F.one_hot(eidx, cfg.n_experts).float().sum((0, 1)), probs.sum(0)
+
+
+def _aux_loss_split(cfg: ArchConfig, p: dict, x: DTensor) -> torch.Tensor:
+    """``aux_loss`` of a DTensor ``x`` from each rank's rows: the counts
+    and probability sums over its own tokens, summed across the split,
+    then E * sum(counts * sums) / T^2, which is E * sum(fraction routed *
+    mean probability) * k."""
+    rows = batch_split(x)
+    rp, mesh = rows.placements, x.device_mesh
+    part = split_grads(rp)
+    counts, sums = local_map(
+        lambda wl, xl: _aux_sums(cfg, wl, xl), out_placements=(part, part),
+        in_placements=((Replicate(),) * mesh.ndim, rp),
+        in_grad_placements=(part, rp), device_mesh=mesh,
+        redistribute_inputs=True)(whole(p["router"]), rows)
+    t = x.shape[0] * x.shape[1]
+    return cfg.n_experts * torch.sum(counts * sums) / (t * t)
 
 
 def kept_assignments(cfg: ArchConfig, p: dict, x: torch.Tensor
@@ -271,6 +350,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, moe in _layers(params):
+        if moe:
+            x = shard_act(x, dense.SEQ)
         fn = functools.partial(layer_apply, cfg, lp, moe=moe, rope=rope,
                                attn=attn)
         x, a = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)

@@ -20,10 +20,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..kernels import ops
 from .attention import _check_impl
-from .common import dense_init, pdt
+from .common import batch_split, dense_init, pdt, pinned
 from .config import ArchConfig
 
 NEG_INF = -1e30
@@ -92,10 +93,17 @@ def ssd(x, dt, A, B, C, *, chunk: int, attn: str = "kernel"):
     """The full-sequence SSD of a block: (y (b,s,h,p), final state
     (b,h,n,p) f32).  ``attn="kernel"`` goes through ``ops.covenant_ssd``,
     whose y comes back in x's dtype, as the reference's kernel API gives
-    it; ``attn="plain"`` through ``ssd_chunked``, whose y is f32."""
+    it; ``attn="plain"`` through ``ssd_chunked``, whose y is f32.  On
+    DTensors both see whole sequences, and their outputs' gradients come
+    back so: only the batch stays split (the kernel path's ``local_map``
+    does the same)."""
     _check_impl(attn)
     if attn == "plain":
-        return ssd_chunked(x, dt, A, B, C, chunk=chunk)
+        if not isinstance(x, DTensor):
+            return ssd_chunked(x, dt, A, B, C, chunk=chunk)
+        x, dt, B, C = (batch_split(t) for t in (x, dt, B, C))
+        return tuple(pinned(t) for t in ssd_chunked(x, dt, A, B, C,
+                                                    chunk=chunk))
     y, st = ops.covenant_ssd(x, dt, A, B, C, chunk=chunk, return_state=True)
     return y, st.transpose(-1, -2)
 

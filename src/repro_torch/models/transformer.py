@@ -22,14 +22,18 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_lib
 from .common import (apply_mlp, apply_norm, apply_rope, cdt, cross_entropy,
                      dense_init, embed_tokens, init_embed, init_mlp,
                      init_norm, logits_from_hidden, pdt, rms_head_norm,
-                     rope_frequencies)
+                     rope_frequencies, shard_act)
 from .config import ArchConfig
+
+# the residual stream's activation sharding (``common.shard_act``)
+SEQ = ("batch", "seq", None)
 
 # ---------------------------------------------------------------------------
 # layer pattern helpers
@@ -173,12 +177,18 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     activations, as the reference's ``jax.checkpoint`` does per layer
     group."""
     x = _embed(cfg, params, tokens, embeds)
+    x = shard_act(x, SEQ)  # boundary: embed -> layers
     positions = torch.arange(x.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    for lp, local in zip(params["layers"], layer_is_local(cfg)):
+    per = len(layer_pattern(cfg))
+    for i, (lp, local) in enumerate(zip(params["layers"],
+                                        layer_is_local(cfg))):
+        if i % per == 0:  # each layer group, as the reference's scan body
+            x = shard_act(x, SEQ)
         fn = functools.partial(layer_apply, cfg, lp, local=local,
                                positions=positions, attn=attn)
         x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    x = shard_act(x, SEQ)  # boundary: layers -> loss
     return apply_norm(cfg, params["ln_f"], x)
 
 
@@ -217,11 +227,35 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
             "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+def _local_cache(cache_k: DTensor, new: torch.Tensor):
+    """(the rank's cache shard, ``new`` (B, Hkv, ...) split as the cache's
+    batch and kv heads are and whole along the rest, the global slot of
+    the shard's first entry): a cache split over its sequence (kv heads
+    fewer than the model axis) holds one run of slots a rank."""
+    mesh, cp = cache_k.device_mesh, cache_k.placements
+    keep = tuple(p if p in (Shard(0), Shard(1)) else Replicate() for p in cp)
+    loc = cache_k.to_local()
+    seq = [i for i, p in enumerate(cp) if p == Shard(2)]
+    off = mesh.get_local_rank(seq[0]) * loc.shape[2] if seq else 0
+    return loc, new.redistribute(mesh, keep[:new.ndim]).to_local(), off
+
+
 def _cache_write_prefill(cache_k: torch.Tensor, k: torch.Tensor) -> None:
     """Write a full prefill (B,Hkv,S,D) into the cache, in place.  Rolling
     caches (w < s) keep the last w tokens at their canonical slots
-    ``t % w`` so decode's rolling writes overwrite the oldest entry."""
+    ``t % w`` so decode's rolling writes overwrite the oldest entry.  A
+    DTensor cache takes the write in each rank's own shard."""
     w = cache_k.shape[2]
+    if isinstance(cache_k, DTensor):
+        loc, kl, off = _local_cache(cache_k, k)
+        s, sl = k.shape[2], loc.shape[2]
+        if s >= w:  # slot j holds token s - w + ((j - s) mod w)
+            j = torch.arange(off, off + sl, device=loc.device)
+            loc.copy_(kl[:, :, s - w + torch.remainder(j - s, w)])
+        elif s > off:  # slots [off, min(off + sl, s)) take those tokens
+            hi = min(off + sl, s)
+            loc[:, :, :hi - off] = kl[:, :, off:hi].to(loc.dtype)
+        return
     s = k.shape[2]
     if s >= w:
         last = k[:, :, s - w:].to(cache_k.dtype)
@@ -233,7 +267,21 @@ def _cache_write_prefill(cache_k: torch.Tensor, k: torch.Tensor) -> None:
 def _scatter_write(cache_k: torch.Tensor, k_new: torch.Tensor,
                    pos: torch.Tensor) -> None:
     """Write one token per row (B,Hkv,D) at per-row slots ``pos``, in
-    place."""
+    place; in each rank's own shard of a DTensor cache."""
+    if isinstance(cache_k, DTensor):
+        loc, kl, off = _local_cache(cache_k, k_new)
+        if isinstance(pos, DTensor):
+            pos = pos.redistribute(pos.device_mesh, tuple(
+                p if p == Shard(0) else Replicate()
+                for p in cache_k.placements)).to_local()
+        local = pos.long() - off
+        mine = (local >= 0) & (local < loc.shape[2])
+        slot = torch.clamp(local, 0, loc.shape[2] - 1)
+        bi = torch.arange(loc.shape[0], device=loc.device)[:, None]
+        hi = torch.arange(loc.shape[1], device=loc.device)[None, :]
+        loc[bi, hi, slot[:, None]] = torch.where(
+            mine[:, None, None], kl.to(loc.dtype), loc[bi, hi, slot[:, None]])
+        return
     b, hkv = cache_k.shape[:2]
     bi = torch.arange(b, device=cache_k.device)[:, None]
     hi = torch.arange(hkv, device=cache_k.device)[None, :]
@@ -269,6 +317,7 @@ def _prefill(cfg: ArchConfig, params: dict, layers: list[tuple],
     s = x.shape[1]
     rope = _rope(cfg, torch.arange(s, device=x.device))
     for (lp, local, step), kv in zip(layers, cache["layers"]):
+        x = shard_act(x, SEQ)
         h = apply_norm(cfg, lp["ln1"], x)
         o, k, v = _self_attention(cfg, lp["attn"], h, local=local,
                                   rope=rope, attn=attn)

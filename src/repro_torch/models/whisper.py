@@ -31,7 +31,7 @@ from . import attention as attn_lib
 from . import transformer as dense
 from .common import (apply_mlp, apply_norm, cdt, cross_entropy, dense_init,
                      embed_tokens, init_embed, init_mlp, init_norm,
-                     logits_from_hidden, pdt)
+                     logits_from_hidden, pdt, shard_act)
 from .config import ArchConfig
 
 
@@ -65,6 +65,7 @@ def _layers(cfg: ArchConfig, fns: list, x: torch.Tensor) -> torch.Tensor:
     runs its layers."""
     remat = cfg.remat and torch.is_grad_enabled()
     for fn in fns:
+        x = shard_act(x, ("batch", "seq", None))
         x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
     return x
 

@@ -27,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as attn_lib
 from .common import (apply_norm, cdt, cross_entropy, dense_init,
                      embed_tokens, init_embed, init_norm, logits_from_hidden,
-                     pdt)
+                     pdt, shard_act)
 from .config import ArchConfig
 from .ssm import (conv_state, init_mamba_block, init_mamba_cache,
                   mamba_block, mamba_block_decode, mixer)
@@ -165,6 +165,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     positions = torch.arange(tokens.shape[1], device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for g in range(len(params["loras"])):
+        x = shard_act(x, ("batch", "seq", None))
         fn = functools.partial(_group, cfg, params, g, embed0=embed0,
                                positions=positions, attn=attn)
         x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)

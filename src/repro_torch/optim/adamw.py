@@ -22,6 +22,15 @@ clips each slice of a gradient as it reads it, rounding it to the
 gradient's dtype as ``clip_by_global_norm`` does, and makes no clipped
 copy of the tree.  ``global_norm`` sums each slice's squares in f32 and
 then the slices', which may move its last bits against one sum per leaf.
+
+DTensor leaves (the sharded train step) update elementwise on each rank's
+local shard, slices included, so params, grads and moments keep their
+placements; the moments are zeros of the params' placements, which
+``shardings(opt_state)`` gives them too.  ``global_norm`` sums each leaf's
+local squares, then adds the sums of leaves split over a mesh dim across
+that dim (one all-reduce a dim), so a replicated leaf counts once, not
+once a rank; the leaves' sums are then added in the same order as
+unsharded, so at one rank the norm is bit-equal to it.
 """
 from __future__ import annotations
 
@@ -30,6 +39,8 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..tree import tree_leaves, tree_map, tree_map_with_path, tree_pick
 
@@ -50,10 +61,36 @@ def leaf_slices(*leaves: torch.Tensor):
     return zip(*(leaf.split(rows) for leaf in leaves))
 
 
+def _sq_sum(leaf: torch.Tensor) -> torch.Tensor:
+    return sum(torch.sum(torch.square(s.to(_F32)))
+               for s, in leaf_slices(leaf))
+
+
+def _whole_sums(leaves: list) -> list:
+    """Each DTensor leaf's sum of squares over the whole leaf: the local
+    sums, added across every mesh dim that splits the leaf."""
+    leaves = [g.redistribute(g.device_mesh, [p if not p.is_partial() else
+                                             Replicate() for p in
+                                             g.placements])
+              if any(p.is_partial() for p in g.placements) else g
+              for g in leaves]
+    sums = torch.stack([_sq_sum(g.to_local()) for g in leaves])
+    mesh = leaves[0].device_mesh
+    for d in range(mesh.ndim):
+        split = [isinstance(g.placements[d], Shard) for g in leaves]
+        if any(split):
+            split = torch.tensor(split, device=sums.device)
+            total = funcol.all_reduce(torch.where(split, sums, 0.0), "sum",
+                                      (mesh, d))
+            sums = torch.where(split, total, sums)
+    return list(sums.unbind())
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(sum(torch.sum(torch.square(s.to(_F32)))
-                              for s, in leaf_slices(leaf))
-                          for leaf in tree_leaves(tree)))
+    leaves = tree_leaves(tree)
+    if leaves and isinstance(leaves[0], DTensor):
+        return torch.sqrt(sum(_whole_sums(leaves)))
+    return torch.sqrt(sum(_sq_sum(leaf) for leaf in leaves))
 
 
 def _clip_scale(g: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -69,11 +106,26 @@ def clip_by_global_norm(tree, max_norm: float):
     scale = _clip_scale(g, max_norm)
 
     def clip(leaf):
-        out = torch.empty_like(leaf)
-        for s, o in leaf_slices(leaf, out):
+        out = torch.empty_like(local_part(leaf))
+        for s, o in leaf_slices(local_part(leaf), out):
             o.copy_(_clipped(s, scale))
-        return out
+        return placed_like(out, leaf)
     return tree_map(clip, tree), g
+
+
+def local_part(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor; a plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def placed_like(local: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """``local`` as the shard of a DTensor placed as ``t``, when ``t`` is
+    one."""
+    if not isinstance(t, DTensor):
+        return local
+    return DTensor.from_local(local, t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
 
 
 def _f32(step) -> torch.Tensor:
@@ -120,15 +172,16 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
     lr_fn = lr if callable(lr) else (lambda _: torch.tensor(lr, dtype=_F32))
 
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=_F32,  # noqa: E731
-                                      device=p.device)
-        device = tree_leaves(params)[0].device
+        def zeros(p):
+            loc = local_part(p)
+            return placed_like(torch.zeros_like(loc, dtype=_F32), p)
+        device = local_part(tree_leaves(params)[0]).device
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "step": torch.zeros((), dtype=torch.int32, device=device)}
 
     @torch.no_grad()
     def update(grads, state, params):
-        step = state["step"] + 1
+        step = local_part(state["step"]) + 1
         gnorm = global_norm(grads)
         scale = _clip_scale(gnorm, max_grad_norm)
         t = step.to(_F32)
@@ -138,6 +191,10 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
 
         def upd(path, g, m, v, p):
             decay = _ref_ndim(path, p) >= 2  # decay matrices only
+            if isinstance(g, DTensor) and g.placements != p.placements:
+                g = g.redistribute(p.device_mesh, p.placements)
+            dp = p
+            g, m, v, p = (local_part(t) for t in (g, m, v, p))
             new_p = torch.empty_like(p)
             m2, v2 = (m, v) if inplace else (torch.empty_like(m),
                                              torch.empty_like(v))
@@ -154,11 +211,11 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
                 if decay:
                     delta = delta + weight_decay * ps.to(_F32)
                 ps2.copy_((ps.to(_F32) - lr_t * delta).to(p.dtype))
-            return new_p, m2, v2
+            return tuple(placed_like(t, dp) for t in (new_p, m2, v2))
 
         out = tree_map_with_path(upd, grads, state["mu"], state["nu"], params)
         new_state = {"mu": tree_pick(out, 1), "nu": tree_pick(out, 2),
-                     "step": step}
+                     "step": placed_like(step, state["step"])}
         return tree_pick(out, 0), new_state, {"grad_norm": gnorm,
                                               "lr": lr_t}
 
@@ -166,4 +223,5 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
 
 
 __all__ = ["Optimizer", "SLICE_ELEMS", "adamw", "clip_by_global_norm",
-           "cosine_schedule", "global_norm", "leaf_slices", "linear_schedule"]
+           "cosine_schedule", "global_norm", "leaf_slices", "linear_schedule",
+           "local_part", "placed_like"]

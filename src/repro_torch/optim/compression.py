@@ -9,6 +9,8 @@ grows an ``err`` tree of f32 residuals that mirrors the params.
 The reference's tensors are its stacked layer leaves, so one scale spans a
 leaf of every layer (of one pattern position).  The port quantises in that
 layout (``convert.to_reference_layout``), so it gives the same numbers.
+On DTensor leaves the residuals keep the params' placements, and each
+scale is the max over the whole stacked leaf (a max across its shards).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from ..convert import from_reference_layout, to_reference_layout
 from ..models.config import ArchConfig
 from ..tree import tree_map, tree_pick
-from .adamw import Optimizer
+from .adamw import Optimizer, local_part, placed_like
 
 
 def compress(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -35,8 +37,8 @@ def decompress(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 def int8_compressed(opt: Optimizer, cfg: ArchConfig) -> Optimizer:
     def init(params):
         inner = opt.init(params)
-        err = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                             device=p.device), params)
+        err = tree_map(lambda p: placed_like(torch.zeros_like(
+            local_part(p), dtype=torch.float32), p), params)
         return {"inner": inner, "err": err}
 
     @torch.no_grad()

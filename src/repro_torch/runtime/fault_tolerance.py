@@ -14,20 +14,29 @@ Checkpoints hold the reference's stacked layer layout
 (``convert.to_reference_layout`` of ``cfg``), so the JAX package's loop
 resumes from them and this one from the JAX package's.  The report also
 keeps every step's wall seconds.
+
+On a sharded state (DTensor leaves, one process a rank) every rank runs the
+loop: the loss it reads is the whole batch's, so every rank takes the same
+rollback and resume decisions; each checkpoint is gathered and rank 0
+writes it (``checkpoint.save_checkpoint``); a load places each leaf as
+the state's leaf is placed (``checkpoint.restore_sharded``); and the
+straggler monitor watches each rank's own step times.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import checkpoint as ckpt
 from ..convert import from_reference_layout, to_reference_layout
 from ..models.config import ArchConfig
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -64,21 +73,36 @@ class LoopReport:
     step_seconds: list = dataclasses.field(default_factory=list)
 
 
+class _Placed(NamedTuple):
+    """Where a loaded leaf goes: a DTensor's mesh and placements."""
+    mesh: object
+    placements: tuple
+
+
 def _save(cfg: ArchConfig, ckpt_dir: str, step: int, state: dict,
           keep: int) -> None:
-    ckpt.save_checkpoint(ckpt_dir, step, to_reference_layout(cfg, state),
-                         keep=keep)
+    """A checkpoint of ``state``; a sharded one gathered on every rank and
+    written by rank 0."""
+    sharded = any(isinstance(t, DTensor) for t in tree_leaves(state))
+    whole = tree_map(ckpt.store.gathered, state)
+    if not sharded or dist.get_rank() == 0:
+        ckpt.save_checkpoint(ckpt_dir, step, to_reference_layout(cfg, whole),
+                             keep=keep)
+    if sharded:
+        dist.barrier()
 
 
 def _load(cfg: ArchConfig, ckpt_dir: str, like: dict, step: int | None
           ) -> tuple[dict, int]:
-    """The checkpoint at ``step`` (latest if None) on the devices and in
-    the dtypes of ``like``'s leaves."""
+    """The checkpoint at ``step`` (latest if None) on the devices, in the
+    dtypes and with the placements of ``like``'s leaves."""
     shapes = to_reference_layout(cfg, tree_map(
         lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), like))
     tree, step, _ = ckpt.load_checkpoint(ckpt_dir, shapes, step)
     state = from_reference_layout(cfg, tree)
-    return tree_map(lambda a, t: a.to(t.device), state, like), step
+    where = tree_map(lambda t: _Placed(t.device_mesh, t.placements)
+                     if isinstance(t, DTensor) else t.device, like)
+    return tree_map(ckpt.store.place_array, state, where), step
 
 
 def train_loop(train_step: Callable, params, opt_state, data_iter,

@@ -1635,3 +1635,94 @@ def test_parallel_compile_after_cuda_init_on_card(cuda, tmp_path):
     repro_torch.clear_cache()
     serial = [art.cycles() for _, art in compile_layer_gemms(cfg, 4)]
     assert [art.cycles() for art in arts] == serial
+
+
+# ---------------------------------------------------------------------------
+# the distribution layer on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL group (``launch.mesh.init_distributed``, which
+    starts one where no launcher did) and its (1, 1) host mesh; the group
+    ends with the test."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.init_distributed("cuda")
+    assert dist.get_backend() == "nccl"
+    yield mesh_lib.make_host_mesh(1, device_type="cuda")
+    dist.destroy_process_group()
+
+
+def test_sharded_attention_runs_the_kernels_on_card(nccl_mesh):
+    """``covenant_attention`` with gradients and ``covenant_decode_attention``
+    on DTensors at one rank: one LSE forward, one backward and one decode
+    launch each, bit-equal to the same calls on the local tensors."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    b, hq, hkv, s, d = 2, 16, 8, 256, 128
+    q, k, v, do = (randn(nccl_mesh.device_type, b, h, s, d,
+                         dtype=torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    pl = (Shard(0), Replicate())
+
+    def dt(t):
+        return DTensor.from_local(t, nccl_mesh, pl, run_check=False)
+    leaves = [dt(t).requires_grad_(True) for t in (q, k, v)]
+    counts = (flash_attention_fwd_lse.launches, flash_decode.launches)
+    out = ops.covenant_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, dt(do))
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = ops.covenant_attention(*plain)
+    wgrads = torch.autograd.grad(want, plain, do)
+    assert torch.equal(out.to_local(), want)
+    for g, w in zip(grads, wgrads):
+        assert torch.equal(g.to_local(), w)
+    qd = randn(nccl_mesh.device_type, b, hq, d, dtype=torch.bfloat16)
+    lens = torch.tensor([17, 256], device="cuda", dtype=torch.int32)
+    got = ops.covenant_decode_attention(dt(qd), dt(k), dt(v), dt(lens))
+    assert torch.equal(got.to_local(),
+                       ops.covenant_decode_attention(qd, k, v, lens))
+    assert flash_attention_fwd_lse.launches == counts[0] + 2
+    assert flash_decode.launches == counts[1] + 2
+
+
+def test_collectives_at_one_rank_on_card(nccl_mesh):
+    """``compressed_psum`` is the int8 round trip of its input at one rank;
+    ``sharded_decode_attention`` agrees with the decode's plain version."""
+    from repro_torch.runtime import collectives
+    g = randn("cuda", 64, 96)
+    got = collectives.compressed_psum({"g": g}, nccl_mesh, "data")["g"]
+    scale = g.abs().max() / 127.0 + 1e-12
+    assert torch.equal(got, torch.clamp(torch.round(g / scale), -127, 127)
+                       * scale)
+    b, h, s, d = 2, 4, 64, 16
+    q, k, v = randn("cuda", b, h, d), randn("cuda", b, h, s, d), \
+        randn("cuda", b, h, s, d)
+    lens = torch.tensor([40, 64], device="cuda", dtype=torch.int32)
+    got = collectives.sharded_decode_attention(q, k, v, lens, nccl_mesh)
+    want = flash_decode_plain(q.reshape(b * h, 1, d), k.reshape(b * h, s, d),
+                              v.reshape(b * h, s, d), lens,
+                              kv_heads=h).reshape(b, h, d)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=0)
+
+
+def test_sharded_train_smoke_matches_unsharded_on_card(cuda, tmp_path):
+    """``launch.train --smoke --model-axis 1`` (a one-rank NCCL group that
+    the launcher starts) against the unsharded run: the same losses, bit
+    for bit, and the same kernel launches."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    args = ["--arch", "qwen3-0.6b", "--smoke", "--steps", "3", "--seq-len",
+            "64", "--global-batch", "4", "--microbatches", "2",
+            "--accel-target", "none", "--ckpt-every", "0"]
+    plain = train.main(args + ["--ckpt-dir", str(tmp_path / "a")])
+    try:
+        sharded = train.main(args + ["--ckpt-dir", str(tmp_path / "b"),
+                                     "--model-axis", "1"])
+        assert dist.get_backend() == "nccl"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert sharded["report"].losses == plain["report"].losses
+    assert sharded["launches"] == plain["launches"]
+    assert sharded["launches"]["flash_attention_bwd"] > 0

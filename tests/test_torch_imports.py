@@ -49,7 +49,10 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "repro_torch.configs.whisper_base",
                 "repro_torch.configs.paligemma_3b",
                 "repro_torch.launch.attn_probes",
-                "repro_torch.launch.ssd_probes", "repro_torch.sweep"} | {
+                "repro_torch.launch.ssd_probes", "repro_torch.sweep",
+                "repro_torch.configs", "repro_torch.runtime.sharding",
+                "repro_torch.runtime.collectives", "repro_torch.launch.mesh",
+                "repro_torch.launch.specs", "repro_torch.launch.dryrun"} | {
         f"repro_torch.core.{m}" for m in (
             "driver", "pipeline", "passes", "codegen", "cost", "stream",
             "interp", "semantics", "covenant", "search", "store",
