@@ -161,7 +161,18 @@
    the loss falling, the LSE forward and the backward launched exactly
    ``train_attention_launches`` times); the examples' launches join the
    ``kernels`` line;
-16. prints the count of ``device_ms`` windows taken again as the host
+16. the sharded main path in a one-rank NCCL group, in a child under
+   ``torchrun`` (``sharded_main``): ``launch.train --model-axis 1``,
+   ``restore_sharded``, ``launch.serve`` and both collectives;
+17. the roofline of the one-card steps (``roofline_steps``): phase 3's
+   prefill and decode step (timed in phase 3, ``time_serve_steps``) and
+   the train steps of phases 4, 8, 12 and 13, each counted on the CPU on
+   meta tensors through the plain path (``launch.dryrun.count_step``) and
+   set beside its measured ms: counted FLOPs and HBM bytes, model FLOPs,
+   the H100 roofline and its bound, mfu, the roofline's share of the
+   measured time and model FLOPs over counted FLOPs; every count positive,
+   every mfu and share in (0, 1.05]; no kernel launch;
+18. prints the count of ``device_ms`` windows taken again as the host
    fell behind and of profiler windows that lost records, and what they
    left (``launch.layers.DEVICE_WINDOWS``, ``PROFILER_WINDOWS``; one line
    for this process, one for the child of phases 9 to 13), a
@@ -210,6 +221,7 @@ from repro_torch.kernels.tiling import (  # noqa: E402
     attention_blocks, attention_bwd_blocks, attention_bwd_mma_blocks,
     attention_mma_blocks, decode_block_kv, gemm_blocks, ssd_mma_blocks)
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.dryrun import count_step  # noqa: E402
 from repro_torch.launch.attn_probes import bf16_gate  # noqa: E402
 from repro_torch.launch.layers import (  # noqa: E402
     DEVICE_WINDOWS, PROFILER_WINDOWS, compile_layer_gemms, device_ms,
@@ -217,6 +229,8 @@ from repro_torch.launch.layers import (  # noqa: E402
 from repro_torch.models import get_model, moe  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.optim.adamw import leaf_slices  # noqa: E402
+from repro_torch.roofline import (PEAK_FLOPS, model_flops,  # noqa: E402
+                                  roofline_terms)
 from repro_torch.runtime import (make_loss_with_accum,  # noqa: E402
                                  make_train_step)
 from repro_torch.targets import H100  # noqa: E402
@@ -434,6 +448,12 @@ SWEEP_STORE = ROOT / "build" / "sweep_store"
 PARALLEL_STORE = ROOT / "build" / "parallel_store"
 TRAIN_LM_STEPS = 30
 TRAIN_LM_CKPT = ROOT / "build" / "train_lm_ckpt"
+# phase 17, the roofline of the one-card steps: the prefills and decode
+# steps ``time_serve_steps`` times of phase 3's served run, median of this
+# many; an mfu or a roofline share above ROOFLINE_MAX means the count or
+# the time is wrong
+SERVE_TIMED = 8
+ROOFLINE_MAX = 1.05
 # phases 9 to 13 run in a child (``late_main``), which writes its results
 # here, within LATE_TIMEOUT seconds
 LATE_OUT = ROOT / "build" / "late_phases.json"
@@ -1200,6 +1220,44 @@ def profile_batch(model, params) -> dict:
     return _profile(lambda: serve.serve(model, params, prompts, batch=BATCH,
                                         max_new=MAX_NEW, max_len=MAX_LEN),
                     "one serve batch")
+
+
+def time_serve_steps(model, params) -> dict:
+    """Wall ms of the served run's two steps on the kernel path (its model
+    and weights): one prefill of ``BATCH`` prompts of ``PROMPT`` tokens into
+    a fresh cache of ``MAX_LEN``, and one decode step of ``BATCH`` rows
+    against it, the card synchronised around each; the median of
+    ``SERVE_TIMED`` prefills (after one warm-up) and of ``SERVE_TIMED``
+    decode steps after each.  Phase 17 sets them beside their roofline."""
+    rng = np.random.default_rng(3)
+    toks = torch.as_tensor(rng.integers(2, model.cfg.vocab, (BATCH, PROMPT)),
+                           device=model.device)
+    prefill, decode = [], []
+
+    def timed(fn, out):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t))
+        return res
+
+    for i in range(SERVE_TIMED + 1):
+        cache = model.init_cache(BATCH, MAX_LEN)
+        logits, cache = timed(lambda: model.prefill(params, {"tokens": toks},
+                                                    cache), prefill)
+        tok = logits.argmax(-1)
+        for _ in range(SERVE_TIMED if i else 1):
+            logits, cache = timed(lambda: model.decode_step(params, tok,
+                                                            cache), decode)
+            tok = logits.argmax(-1)
+    out = {"prefill": float(np.median(prefill[1:])),
+           "decode": float(np.median(decode[1:]))}
+    print(f"[serve] {model.cfg.name} kernel path: prefill {BATCH} x {PROMPT} "
+          f"{out['prefill']:.2f} ms, decode step {BATCH} rows, cache "
+          f"{MAX_LEN}: {out['decode']:.2f} ms (medians of {SERVE_TIMED})",
+          flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3041,6 +3099,74 @@ def sharded_child(t0: float, tstats: dict, train_launches: dict,
     return dict(res, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the roofline of the one-card steps
+# ---------------------------------------------------------------------------
+
+
+def roofline_steps(serve_ms: dict, train_ms: dict) -> list[dict]:
+    """Phase 17: each step the script times, counted on the CPU on meta
+    tensors through the plain path (``launch.dryrun.count_step``): phase
+    3's prefill and decode step (``serve_ms``), and the train steps of
+    phases 4, 8, 12 and 13 at the shapes and depths they train
+    (``train_ms``: ms a step by arch).  Prints for each the counted FLOPs
+    and HBM bytes, ``roofline.model_flops``, the H100 roofline's ms and
+    what bounds it, the measured ms, ``mfu`` = model FLOPs / (measured s x
+    ``PEAK_FLOPS``), the roofline's share of the measured time and model
+    FLOPs / counted FLOPs (``useful``, the reference table's ratio); raises
+    unless every count is positive and every mfu and share lies in (0,
+    ``ROOFLINE_MAX``].  No kernel launches and nothing goes to the card."""
+    steps = [("serve", ARCH, "prefill", BATCH, PROMPT, 0, 1,
+              serve_ms["prefill"]),
+             ("serve", ARCH, "decode", BATCH, MAX_LEN, 0, 1,
+              serve_ms["decode"]),
+             ("phase 4", ARCH, "train", TRAIN_BATCH, TRAIN_SEQ, 0,
+              MICROBATCHES, train_ms[ARCH])]
+    steps += [("phase 8", arch, "train", SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, 0,
+               1, train_ms[arch]) for arch in SSM_ARCHS]
+    steps += [("phase 12", arch, "train", b, seq, 0, 1, train_ms[arch])
+              for arch, (b, seq, _) in ENCDEC_VLM_TRAIN.items()]
+    steps += [("phase 13", arch, "train", b, seq, depth, 1, train_ms[arch])
+              for arch, (depth, b, seq, *_) in TRAIN_CONFIGS.items()]
+    out = []
+    for phase, arch, kind, batch, seq, depth, mb, ms in steps:
+        t = time.perf_counter()
+        cfg = configs.get_config(arch)
+        cfg = cfg.replace(n_layers=depth) if depth else cfg
+        rec = count_step(cfg, kind, batch, seq, microbatches=mb,
+                         max_len=MAX_LEN)
+        # the reference's shapes count a VLM's image prefix in its tokens
+        tokens = seq + (cfg.vis_tokens if cfg.family == "vlm" else 0)
+        mf = model_flops(cfg, configs.ShapeSpec(kind, kind, tokens, batch),
+                         kind)
+        rl = roofline_terms(rec)
+        rec.update(phase=phase, arch=arch, kind=kind, batch=batch, seq=seq,
+                   n_layers=cfg.n_layers, microbatches=mb, model_flops=mf,
+                   compute_ms=1e3 * rl.compute_s, memory_ms=1e3 * rl.memory_s,
+                   collective_ms=1e3 * rl.collective_s,
+                   roofline_ms=1e3 * rl.step_s, bound_by=rl.bottleneck,
+                   measured_ms=ms, mfu=mf / (ms * 1e-3 * PEAK_FLOPS),
+                   roofline_share=rl.step_s / (ms * 1e-3),
+                   useful=mf / rec["flops"],
+                   count_s=time.perf_counter() - t)
+        print(f"[roofline] {arch} {kind} {batch} x {seq} ({cfg.n_layers} "
+              f"layers, {phase}): counted {rec['flops']:.4e} FLOP "
+              f"{rec['bytes_accessed']:.4e} B; model {mf:.4e} FLOP; "
+              f"roofline {rec['roofline_ms']:.3f} ms ({rl.bottleneck}; "
+              f"compute {rec['compute_ms']:.3f}, memory "
+              f"{rec['memory_ms']:.3f}); measured {ms:.3f} ms; mfu "
+              f"{rec['mfu']:.4f}; share {rec['roofline_share']:.4f}; useful "
+              f"{rec['useful']:.3f}; counted in {rec['count_s']:.1f} s",
+              flush=True)
+        if min(rec["flops"], rec["bytes_accessed"], mf) <= 0 or not (
+                0 < rec["mfu"] <= ROOFLINE_MAX
+                and 0 < rec["roofline_share"] <= ROOFLINE_MAX):
+            raise AssertionError(f"roofline of {arch} {kind}: counts, mfu "
+                                 f"or share out of range: {rec}")
+        out.append(rec)
+    return out
+
+
 def print_windows(where: str, dw: dict, pw: dict) -> None:
     """The counts of ``device_ms`` and profiler windows of a process."""
     print(f"[profile] device_ms windows over {where}: "
@@ -3129,6 +3255,7 @@ def main() -> None:
             raise AssertionError(f"main path never launched {name}")
     rel, agree, model, params = compare_paths(cfg, dev)
     prof = profile_batch(model, params)
+    serve_ms = time_serve_steps(model, params)
     del model, params
     torch.cuda.empty_cache()
     print(f"[phase] serve done at {time.perf_counter() - t0:.1f}s: "
@@ -3216,6 +3343,17 @@ def main() -> None:
 
     # phase 16: the sharded main path in a one-rank NCCL group
     sharded = sharded_child(t0, tstats, train_launches, stats)
+
+    # phase 17: the roofline of the one-card steps, counted on the CPU
+    t17 = time.perf_counter()
+    roofline = roofline_steps(serve_ms, {
+        ARCH: tstats["ms_per_step"],
+        **{a: r["ms_per_step"] for a, r in (
+            *ssm_train.items(), *encdec_vlm_train.items(),
+            *train_configs.items())}})
+    print(f"[phase] roofline of {len(roofline)} steps done at "
+          f"{time.perf_counter() - t0:.1f}s "
+          f"({time.perf_counter() - t17:.1f} s)", flush=True)
     print_windows("this process", DEVICE_WINDOWS, PROFILER_WINDOWS)
     print_windows("phases 9-13's child", late["device_windows"],
                   late["profiler_windows"])
@@ -3260,7 +3398,7 @@ def main() -> None:
     summary = dict(card=smi, build_s=build_s, serve=dict(
         tok_per_s=stats["tok_per_s"], new_tokens=stats["new_tokens"],
         seconds=stats["seconds"], requests=stats["requests"],
-        batch_seconds=stats["batch_seconds"]),
+        batch_seconds=stats["batch_seconds"], step_ms=serve_ms),
         compare_rel_l2=rel, argmax_agree=agree, profile=prof, train=dict(
             ms_per_step=tstats["ms_per_step"],
             tokens_per_s=tstats["tokens_per_s"],
@@ -3272,7 +3410,7 @@ def main() -> None:
         ssd=ssd, ssm=ssm, ssm_train=ssm_train, dense=dense, moe=moes,
         encdec_vlm=encdec_vlm, encdec_vlm_train=encdec_vlm_train,
         train_configs=train_configs, covenant=covenant, sweep=sweep,
-        sharded=sharded,
+        sharded=sharded, roofline=roofline,
         launches=launches, late_wall_s=late["wall_s"],
         device_windows=dict(DEVICE_WINDOWS),
         profiler_windows=dict(PROFILER_WINDOWS),

@@ -15,9 +15,8 @@ The port's copy of ``examples/train_lm.py``: it trains inside the host
 mesh (``make_host_mesh`` / ``use_mesh``), as the reference does, over
 every rank of the process group (``launch.mesh.init_distributed``: the
 ``torchrun`` ranks, or one); the params are not placed, as the
-reference's are not.  The parameter count is that of the weight
-matrices in the port's parameter tree (the norm scales left out, as the
-reference's ``roofline.param_count`` leaves them out).
+reference's are not.  The parameter count is ``roofline.param_count``'s,
+as the reference's example takes it.
 """
 import argparse
 
@@ -31,8 +30,8 @@ from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
 from repro_torch.launch.train import kernel_launches
 from repro_torch.models import get_model
 from repro_torch.optim import adamw, cosine_schedule
+from repro_torch.roofline import param_count
 from repro_torch.runtime import make_train_step, train_loop
-from repro_torch.tree import tree_leaves
 
 MICROBATCHES = 2
 SEQ_LEN = 256
@@ -47,12 +46,6 @@ def config():
         compute_dtype="float32", remat=False)
 
 
-def param_count(params: dict) -> int:
-    """Elements of the weight matrices (every leaf of two or more
-    dimensions)."""
-    return sum(p.numel() for p in tree_leaves(params) if p.dim() >= 2)
-
-
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=300)
@@ -64,7 +57,7 @@ def main(argv: list[str] | None = None) -> dict:
     cfg = config()
     model = get_model(cfg, device=args.device)
     params = model.init_params(0)
-    total = param_count(params)
+    total, _ = param_count(cfg)
     print(f"[train_lm] {total / 1e6:.1f}M params")
     # per-GEMM accelerator cycles at the training token count (8 x 256),
     # compiled through the driver's pipeline/cache/store seam

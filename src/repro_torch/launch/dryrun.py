@@ -103,10 +103,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
       weights a layer gathers whole, activations, gradients and the
       buffers of collectives count here and not at rest;
     * ``collectives``: how many of each collective the step issued
-      (``CommDebugMode``).
+      (``CommDebugMode``);
+    * ``flops``, ``bytes_accessed``, ``collective_bytes``,
+      ``collective_breakdown`` and ``n_collectives``: one rank's FLOPs,
+      HBM bytes and collective bytes (by kind) over the step, counted on
+      its local ops (``roofline.collect.StepCounter``), so
+      ``roofline.roofline_terms(record)`` reads a record as it reads the
+      reference's; ``path`` names the path counted (``plain``).
 
-    FLOPs and collective bytes are the roofline slice's to add; the record
-    has neither.  ``mesh`` runs the cell on a mesh of the caller's (the
+    ``mesh`` runs the cell on a mesh of the caller's (the
     tests' small fake groups) in place of the production one;
     ``activations`` the (batch, seq, heads, vocab) axes of
     ``configure_activation_sharding`` in place of the reference's choice
@@ -119,6 +124,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     from . import specs
     from .mesh import use_mesh
     from ..models.common import configure_activation_sharding
+    from ..roofline.collect import StepCounter, record
     from ..runtime.sharding import axis_sizes, place
     from ..tree import tree_leaves, tree_map
 
@@ -157,12 +163,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
     peak = MemTracker()
     peak.track_external(*tree_leaves(list(held.values())))
     configure_activation_sharding(*activations)
+    # the counter sits under the other modes, which see the step as they
+    # would without it
+    counter = StepCounter()
     try:
-        with use_mesh(mesh), _all_to_all(), comm, peak, torch.no_grad():
+        with counter, use_mesh(mesh), _all_to_all(), comm, peak, \
+                torch.no_grad():
             fn(*held.values())
     finally:
         configure_activation_sharding(None, None, None, None)
-    return {
+    return {**record(counter), "path": "plain",
         "arch": arch, "shape": shape_name, "mesh": mesh_kind,
         "status": "ok", "kind": shape.kind,
         "seq_len": shape.seq_len, "global_batch": shape.global_batch,
@@ -176,6 +186,51 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         "setup_s": round(t_setup, 1),
         "seconds": round(time.time() - t0 - t_setup, 1),
     }
+
+
+def count_step(cfg, kind: str, batch: int, seq: int, *,
+               microbatches: int = 1, max_len: int = 0) -> dict:
+    """One step of the model ``cfg`` as one card runs it, on no mesh,
+    counted on meta tensors through the plain path
+    (``roofline.collect_step``): a ``train`` step (``launch.train``'s:
+    forward, backward and AdamW over ``batch`` rows of ``seq`` tokens in
+    ``microbatches``), a ``prefill`` of ``batch`` prompts of ``seq``
+    tokens into a cache of ``max_len``, or one ``decode`` step of
+    ``batch`` rows against that cache.  The model's stub-frontend inputs
+    come at ``extra_inputs``' shapes.  Returns the counted record and
+    ``path``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..models import get_model
+    from ..optim import adamw, cosine_schedule
+    from ..roofline import collect_step
+    from ..runtime import make_train_step
+    from ..tree import tree_map
+
+    # the stand-ins are drawn by a cpu model in the fake mode; the step
+    # runs a meta model's functions, which put the batch on ``meta``
+    model = get_model(cfg, device="meta", attn="plain")
+    opt = adamw(cosine_schedule(3e-3, 20, 100), inplace=True)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        params = get_model(cfg, device="cpu").init_params(0)
+        inputs = {"tokens": torch.zeros((batch, seq), dtype=torch.long)}
+        for name, (shape_fn, dtype) in model.extra_inputs.items():
+            inputs[name] = torch.zeros(shape_fn(batch, seq), dtype=dtype)
+        if kind == "train":
+            inputs["targets"] = inputs["tokens"]
+            inputs["weights"] = torch.ones((batch, seq))
+            fn = make_train_step(model.loss_fn, opt, microbatches)
+            args = (params, opt.init(params), inputs)
+        elif kind == "prefill":
+            fn, args = model.prefill, (params, inputs,
+                                       model.init_cache(batch, max_len))
+        else:
+            fn, args = model.decode_step, (
+                params, torch.zeros((batch,), dtype=torch.long),
+                model.init_cache(batch, max_len))
+    with torch.no_grad():
+        counted = collect_step(fn, *tree_map(_meta, args))
+    return {**counted, "path": "plain"}
 
 
 def _parse_set(items: list[str]) -> dict:
@@ -240,6 +295,7 @@ def main(argv: list[str] | None = None) -> int:
 
     if not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all, are required")
+    from ..roofline import roofline_terms
     for mesh_kind in meshes:
         rec = run_cell(args.arch, args.shape, mesh_kind, args.microbatches,
                        overrides=overrides or None,
@@ -254,7 +310,10 @@ def main(argv: list[str] | None = None) -> int:
             print(f"[dryrun] {tag}: ok bytes/rank " + " ".join(
                 f"{k}={v:.3e}" for k, v in b.items()) +
                 f" peak={rec['peak_bytes_per_rank']:.3e}"
-                f" collectives={sum(rec['collectives'].values())} "
+                f" collectives={sum(rec['collectives'].values())}"
+                f" flops={rec['flops']:.3e}"
+                f" coll_bytes={rec['collective_bytes']:.3e}"
+                f" bottleneck={roofline_terms(rec).bottleneck} "
                 f"step={rec['seconds']}s")
         else:
             print(f"[dryrun] {tag}: {rec['status']} ({rec.get('reason', '')})")

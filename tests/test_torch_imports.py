@@ -52,7 +52,9 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "repro_torch.launch.ssd_probes", "repro_torch.sweep",
                 "repro_torch.configs", "repro_torch.runtime.sharding",
                 "repro_torch.runtime.collectives", "repro_torch.launch.mesh",
-                "repro_torch.launch.specs", "repro_torch.launch.dryrun"} | {
+                "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                "repro_torch.roofline", "repro_torch.roofline.model",
+                "repro_torch.roofline.collect"} | {
         f"repro_torch.core.{m}" for m in (
             "driver", "pipeline", "passes", "codegen", "cost", "stream",
             "interp", "semantics", "covenant", "search", "store",
