@@ -24,10 +24,10 @@ import torch
 
 from repro_torch import configs
 from repro_torch.data import SyntheticLM
+from repro_torch.kernels import kernel_launches
 from repro_torch.launch.layers import layer_report
 from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
                                      use_mesh)
-from repro_torch.launch.train import kernel_launches
 from repro_torch.models import get_model
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.roofline import param_count

@@ -12,6 +12,18 @@ from . import flash_attention, matmul, ops, ref, ssd_scan, tiling
 from .ops import (covenant_attention, covenant_decode_attention,
                   covenant_matmul, covenant_ssd)
 
+
+def kernel_launches() -> dict[str, int]:
+    """Every kernel wrapper's launch count (its ``.launches``)."""
+    fa = flash_attention
+    return {"matmul": matmul.matmul.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "flash_attention_fwd_lse": fa.flash_attention_fwd_lse.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
+            "flash_decode": fa.flash_decode.launches,
+            "ssd_chunk_scan": ssd_scan.ssd_chunk_scan.launches}
+
+
 __all__ = ["covenant_attention", "covenant_decode_attention",
-           "covenant_matmul", "covenant_ssd", "flash_attention", "matmul",
-           "ops", "ref", "ssd_scan", "tiling"]
+           "covenant_matmul", "covenant_ssd", "flash_attention",
+           "kernel_launches", "matmul", "ops", "ref", "ssd_scan", "tiling"]

@@ -200,12 +200,19 @@ def mean_ms(fn, device: torch.device, repeats: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / repeats
 
 
+def _on_card(e) -> bool:
+    """A kernel, copy or set on the card; not the device-side shadow of a
+    host range (``record_function``, such as the program's spans), which
+    spans the work it encloses."""
+    return e.device_type == torch.autograd.DeviceType.CUDA and \
+        not getattr(e, "is_user_annotation", False)
+
+
 def device_kernels(prof) -> list[tuple[str, float, int]]:
     """(kernel, device ms, calls) of every kernel a profile saw, largest
     first."""
     return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                   for e in prof.key_averages() if _on_card(e)),
                   key=lambda r: -r[1])
 
 
@@ -277,8 +284,7 @@ def lost_markers(prof) -> str:
     """Which of a profiled window's two marker kernels, the first and the
     last of its kernels, its records lost: "", "first", "last" or
     "both"."""
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+    kernels = sorted((e for e in prof.events() if _on_card(e)),
                      key=lambda e: e.time_range.start)
     marks = [MARKER in e.name for e in kernels]
     first = bool(marks) and marks[0]

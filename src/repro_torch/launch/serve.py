@@ -35,11 +35,9 @@ import time
 import numpy as np
 import torch
 
-from .. import configs
+from .. import configs, tracing
 from ..core import CompileOptions, SearchOptions
-from ..kernels.flash_attention import flash_attention, flash_decode
-from ..kernels.matmul import matmul
-from ..kernels.ssd_scan import ssd_chunk_scan
+from ..kernels import kernel_launches
 from . import mesh as mesh_lib
 from .layers import check_accel_target, layer_report
 from ..models import Model, get_model
@@ -58,7 +56,12 @@ def serve(model: Model, params: dict, prompts: list, *, batch: int,
     each batch's wall seconds to ``batch_seconds`` when given.  A model
     with ``extra_inputs`` draws them for each batch from ``rng``
     (``extra_inputs`` below), as the reference does from its prompts'
-    rng."""
+    rng.  While tracing is on (``repro_torch.tracing``), each prefill and
+    its argmax is the span ``serve.prefill``; a batch's first decode step
+    and its argmax is ``serve.first_decode`` (its launches wait behind the
+    prefill's on the card's queue), each later one ``serve.decode`` (the
+    host's enqueue of the step); each token's read back is
+    ``serve.readback`` (the host's wait for it)."""
     queue = list(prompts)
     outputs = []
     total_tokens = 0
@@ -71,16 +74,20 @@ def serve(model: Model, params: dict, prompts: list, *, batch: int,
         inputs = {"tokens": toks,
                   **extra_inputs(model, bs, toks.shape[1], rng)}
         cache = model.init_cache(bs, max_len)
-        logits, cache = model.prefill(params, inputs, cache)
-        tok = logits.argmax(-1)
+        with tracing.span("serve.prefill"):
+            logits, cache = model.prefill(params, inputs, cache)
+            tok = logits.argmax(-1)
         steps = [tok]
         done = np.zeros(bs, bool)
-        for _ in range(max_new):
-            logits, cache = model.decode_step(params, tok, cache)
-            tok = logits.argmax(-1)
+        for i in range(max_new):
+            with tracing.span("serve.decode" if i else "serve.first_decode"):
+                logits, cache = model.decode_step(params, tok, cache)
+                tok = logits.argmax(-1)
             steps.append(tok)
             total_tokens += int((~done).sum())
-            done |= tok.cpu().numpy() == EOS
+            with tracing.span("serve.readback"):
+                ready = tok.cpu()
+            done |= ready.numpy() == EOS
             if done.all():
                 break
         outputs.append(torch.stack(steps, 1).cpu().numpy())
@@ -97,13 +104,6 @@ def extra_inputs(model: Model, bs: int, seq: int,
     return {name: torch.as_tensor(rng.standard_normal(shape_fn(bs, seq)),
                                   dtype=dtype, device=model.device)
             for name, (shape_fn, dtype) in model.extra_inputs.items()}
-
-
-def kernel_launches() -> dict[str, int]:
-    return {"matmul": matmul.launches,
-            "flash_attention": flash_attention.launches,
-            "flash_decode": flash_decode.launches,
-            "ssd_chunk_scan": ssd_chunk_scan.launches}
 
 
 def main(argv: list[str] | None = None) -> dict:

@@ -49,26 +49,13 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from .. import configs
 from ..data import SyntheticLM
-from ..kernels.flash_attention import (flash_attention, flash_attention_bwd,
-                                       flash_attention_fwd_lse, flash_decode)
-from ..kernels.matmul import matmul
-from ..kernels.ssd_scan import ssd_chunk_scan
+from ..kernels import kernel_launches
 from ..models import get_model
 from ..optim import adamw, cosine_schedule, int8_compressed
 from ..runtime import make_train_step, sharding as shard_rules, train_loop
 from ..models.common import configure_activation_sharding
 from . import mesh as mesh_lib, specs
 from .layers import check_accel_target, layer_report
-
-
-def kernel_launches() -> dict[str, int]:
-    """Every kernel wrapper's launch count."""
-    return {"matmul": matmul.launches,
-            "flash_attention": flash_attention.launches,
-            "flash_attention_fwd_lse": flash_attention_fwd_lse.launches,
-            "flash_attention_bwd": flash_attention_bwd.launches,
-            "flash_decode": flash_decode.launches,
-            "ssd_chunk_scan": ssd_chunk_scan.launches}
 
 
 def cut_depth(ap: argparse.ArgumentParser, cfg, n_layers: int):

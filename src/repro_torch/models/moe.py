@@ -54,6 +54,7 @@ from .common import (apply_mlp, apply_norm, batch_split, cdt,
                      init_mlp, init_norm, logits_from_hidden, pdt,
                      shard_act, split_grads, whole)
 from .config import ArchConfig
+from .. import tracing
 from ..tree import tree_map
 
 # ---------------------------------------------------------------------------
@@ -122,25 +123,39 @@ def route(cfg: ArchConfig, p: dict, xf: torch.Tensor) -> Routing:
 def _dispatch_block(cfg: ArchConfig, p: dict, xf: torch.Tensor
                     ) -> torch.Tensor:
     """Sort-based dispatch + expert GEMMs for one token block (T, d);
-    returns its routed experts' f32 output (T, d)."""
+    returns its routed experts' f32 output (T, d).  While tracing is on
+    (``repro_torch.tracing``) its four stages are spans, forward and
+    backward, and it counts its T*k assignments and the dropped ones."""
     t, d = xf.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = cdt(cfg)
-    r = route(cfg, p, xf)
-    buf = xf.new_zeros((e + 1, r.cap, d), dtype=dt)
-    # dropped entries all land on row E, which no product reads
-    buf[r.slot_e, r.slot_c] = xf[r.token].to(dt)
-    h = torch.bmm(buf[:e], p["wi"].to(dt))
-    g = torch.bmm(buf[:e], p["wg"].to(dt))
-    y = torch.bmm(F.silu(h) * g, p["wo"].to(dt))                # (E,C,d)
-    gathered = y[torch.clamp(r.slot_e, max=e - 1), r.slot_c]   # (T*k,d)
-    gathered = torch.where(r.keep[:, None], gathered,
-                           torch.zeros((), dtype=dt, device=xf.device))
-    contrib = gathered.float() * r.gate[:, None]
-    # back to (token, k) order, then a fixed-order sum over k
-    flat = torch.empty_like(contrib)
-    flat[r.order] = contrib
-    return flat.reshape(t, k, d).sum(1)
+    with tracing.span("moe.route", xf) as s:
+        r = route(cfg, p, s.bwd_end(xf))
+        r = r._replace(gate=s.bwd_start(r.gate))
+    if tracing.on():
+        tracing.count("moe.assignments", t * k)
+        tracing.count("moe.dropped", (~r.keep).sum())
+    with tracing.span("moe.dispatch", xf) as s:
+        buf = xf.new_zeros((e + 1, r.cap, d), dtype=dt)
+        # dropped entries all land on row E, which no product reads
+        buf[r.slot_e, r.slot_c] = s.bwd_end(xf)[r.token].to(dt)
+        buf = s.bwd_start(buf)
+    with tracing.span("moe.experts") as s:
+        buf = s.bwd_end(buf)
+        h = torch.bmm(buf[:e], p["wi"].to(dt))
+        g = torch.bmm(buf[:e], p["wg"].to(dt))
+        y = torch.bmm(F.silu(h) * g, p["wo"].to(dt))            # (E,C,d)
+        y = s.bwd_start(y)
+    with tracing.span("moe.combine", xf) as s:
+        y = s.bwd_end(y)
+        gathered = y[torch.clamp(r.slot_e, max=e - 1), r.slot_c]   # (T*k,d)
+        gathered = torch.where(r.keep[:, None], gathered,
+                               torch.zeros((), dtype=dt, device=xf.device))
+        contrib = gathered.float() * r.gate[:, None]
+        # back to (token, k) order, then a fixed-order sum over k
+        flat = torch.empty_like(contrib)
+        flat[r.order] = contrib
+        return s.bwd_start(flat.reshape(t, k, d).sum(1))
 
 
 def _blocks(cfg: ArchConfig, xf: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -330,14 +345,18 @@ def layer_apply(cfg: ArchConfig, lp: dict, x: torch.Tensor, *, moe: bool,
                 rope: tuple | None, attn: str = "kernel"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer over the whole sequence: (x out, its aux loss, 0 for a
-    dense layer)."""
-    h = apply_norm(cfg, lp["ln1"], x)
-    o, _, _ = dense._self_attention(cfg, lp["attn"], h, local=False,
-                                    rope=rope, attn=attn)
-    x, h = _attn_residual(cfg, lp, x, o)
-    aux = aux_loss(cfg, lp["ffn"], h) if moe else \
-        torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + _ffn(cfg, lp, h, moe), aux
+    dense layer).  The span ``moe.layer`` (``repro_torch.tracing``) holds
+    it, so its recompute under ``cfg.remat``, which the backward runs
+    inside a stage's backward span, is no part of that span's self
+    time."""
+    with tracing.span("moe.layer", x):
+        h = apply_norm(cfg, lp["ln1"], x)
+        o, _, _ = dense._self_attention(cfg, lp["attn"], h, local=False,
+                                        rope=rope, attn=attn)
+        x, h = _attn_residual(cfg, lp, x, o)
+        aux = aux_loss(cfg, lp["ffn"], h) if moe else \
+            torch.zeros((), dtype=torch.float32, device=x.device)
+        return x + _ffn(cfg, lp, h, moe), aux
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor,

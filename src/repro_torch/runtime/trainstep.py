@@ -16,6 +16,7 @@ import contextlib
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import tracing
 from ..models.common import replicating, whole
 from ..optim import Optimizer
 from ..optim.adamw import local_part, placed_like
@@ -43,7 +44,8 @@ def _value_and_grad(loss_fn, params, batch):
     gives them."""
     leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
     paths, flat = zip(*tree_paths(leaves))
-    with torch.enable_grad(), _dist_context(params):
+    with torch.enable_grad(), _dist_context(params), \
+            tracing.span("train.grad"):
         loss = loss_fn(leaves, batch)
         grads = dict(zip(paths, torch.autograd.grad(loss, flat)))
     return loss.detach(), tree_map_with_path(lambda path, _: grads[path],
@@ -98,14 +100,19 @@ def make_loss_with_accum(loss_fn, microbatches: int, grad_shardings=None):
 def make_train_step(loss_fn, optimizer: Optimizer, microbatches: int = 1,
                     grad_shardings=None):
     """Returns step(params, opt_state, batch) -> (params, opt_state,
-    metrics)."""
+    metrics).  While tracing is on (``repro_torch.tracing``) a step is the
+    span ``train.step``, each microbatch's forward and backward
+    ``train.grad`` and the optimizer's update ``train.update``."""
     grad_fn = make_loss_with_accum(loss_fn, microbatches, grad_shardings)
 
     def train_step(params, opt_state, batch):
-        loss, grads = grad_fn(params, batch)
-        if isinstance(loss, DTensor):  # a partial sum over the batch split
-            loss = loss.full_tensor()
-        new_params, new_state, om = optimizer.update(grads, opt_state, params)
+        with tracing.span("train.step"):
+            loss, grads = grad_fn(params, batch)
+            if isinstance(loss, DTensor):  # a partial sum over the split
+                loss = loss.full_tensor()
+            with tracing.span("train.update"):
+                new_params, new_state, om = optimizer.update(
+                    grads, opt_state, params)
         return new_params, new_state, {"loss": loss, **om}
 
     return train_step

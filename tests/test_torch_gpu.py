@@ -1726,3 +1726,51 @@ def test_sharded_train_smoke_matches_unsharded_on_card(cuda, tmp_path):
     assert sharded["report"].losses == plain["report"].losses
     assert sharded["launches"] == plain["launches"]
     assert sharded["launches"]["flash_attention_bwd"] > 0
+
+
+def test_profiled_spans_are_no_kernel_rows_on_card(cuda):
+    """A SMOKE serve batch and an olmoe train step under the profiler
+    (``launch.layers.profile_window``), where the program's spans are on:
+    the spans' device-side shadows carry ``is_user_annotation`` and give
+    no row of ``device_kernels``, so the card's busy time stays within
+    the window's wall time; the MoE stages are timed on the card."""
+    from repro_torch import tracing
+    from repro_torch.configs import get_config
+    from repro_torch.launch import layers
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import make_train_step
+
+    cfg = get_config("stablelm-12b", smoke=True)
+    model = get_model(cfg, device=cuda)
+    params = model.init_params(0)
+    prompts = [rng.integers(2, cfg.vocab, 8) for _ in range(4)]
+    run = [lambda: serve(model, params, prompts, batch=2, max_new=3,
+                         max_len=12)]
+    ocfg = get_config("olmoe-1b-7b", smoke=True).replace(
+        capacity_factor=0.25)
+    omodel = get_model(ocfg, device=cuda)
+    oparams = omodel.init_params(0)
+    opt = adamw(1e-3)
+    step = make_train_step(omodel.loss_fn, opt)
+    tokens = torch.randint(2, ocfg.vocab, (2, 64), device=cuda)
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    state = opt.init(oparams)
+    run.append(lambda: float(step(oparams, state, batch)[2]["loss"]))
+    ours = ("serve.", "train.", "moe.")
+    for fn in run:
+        fn()
+        tracing.reset()
+        taken = layers.PROFILER_WINDOWS["taken"]
+        rows, wall_ms = layers.profile_window(fn, "spans")
+        assert rows and not [r for r in rows if r[0].startswith(ours)]
+        assert sum(r[1] for r in rows) <= wall_ms
+    spans = tracing.records()["spans"]
+    # a window that lost a marker is taken again, with one more step
+    assert spans["train.step"]["calls"] == \
+        layers.PROFILER_WINDOWS["taken"] - taken
+    assert spans["train.step"]["device_s"] is None
+    for s in ("moe.route", "moe.dispatch", "moe.combine", "moe.combine.bwd"):
+        assert spans[s]["device_self_s"] > 0
+    tracing.reset()

@@ -54,7 +54,7 @@ def test_importing_every_module_leaves_jax_and_repro_out():
                 "repro_torch.runtime.collectives", "repro_torch.launch.mesh",
                 "repro_torch.launch.specs", "repro_torch.launch.dryrun",
                 "repro_torch.roofline", "repro_torch.roofline.model",
-                "repro_torch.roofline.collect"} | {
+                "repro_torch.roofline.collect", "repro_torch.tracing"} | {
         f"repro_torch.core.{m}" for m in (
             "driver", "pipeline", "passes", "codegen", "cost", "stream",
             "interp", "semantics", "covenant", "search", "store",

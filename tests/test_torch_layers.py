@@ -142,7 +142,10 @@ def test_profile_window_raises_after_its_tries(monkeypatch):
 
 
 class _Prof:
-    """Kernel events as ``prof.events()`` gives them, with a CPU op."""
+    """Kernel events as ``prof.events()`` gives them, with a CPU op and
+    the device-side shadows of two host ranges (``record_function``, as
+    the program's spans open), one before the first kernel and one after
+    the last."""
 
     def __init__(self, names):
         from types import SimpleNamespace as NS
@@ -150,11 +153,30 @@ class _Prof:
                      torch.autograd.DeviceType.CPU)
         self._events = [NS(name="aten::mm", device_type=cpu,
                            time_range=NS(start=-1.0))] + [
+            NS(name=n, device_type=cuda, is_user_annotation=True,
+               time_range=NS(start=t))
+            for n, t in (("serve.prefill", -0.5), ("train.step", 99.0))] + [
             NS(name=n, device_type=cuda, time_range=NS(start=float(t)))
             for t, n in reversed(list(enumerate(names)))]
 
     def events(self):
         return self._events
+
+    def key_averages(self):
+        """One row a name, as ``key_averages()`` keys them (the shadows'
+        rows apart, carrying ``is_user_annotation``), each event 1 ms of
+        self device time and a shadow 50."""
+        from types import SimpleNamespace as NS
+        rows = {}
+        for e in self._events:
+            key = (e.name, e.device_type,
+                   getattr(e, "is_user_annotation", False))
+            row = rows.setdefault(key, NS(
+                key=e.name, device_type=e.device_type, count=0,
+                is_user_annotation=key[2], self_device_time_total=0.0))
+            row.count += 1
+            row.self_device_time_total += 1e3 * (50.0 if key[2] else 1.0)
+        return list(rows.values())
 
 
 @pytest.mark.parametrize("names, lost", [
@@ -167,3 +189,11 @@ class _Prof:
 ])
 def test_lost_markers_reads_the_first_and_last_kernels(names, lost):
     assert layers.lost_markers(_Prof(names)) == lost
+
+
+def test_device_kernels_leaves_out_span_shadows():
+    """A host range's device-side shadow is no kernel: it neither shows
+    as a row nor adds its enclosed time to the card's busy time."""
+    rows = layers.device_kernels(_Prof(["spin_kernel", "gemm", "gemm",
+                                        "spin_kernel"]))
+    assert sorted(rows) == [("gemm", 2.0, 2), ("spin_kernel", 2.0, 2)]
