@@ -25,7 +25,12 @@
    with ``--attn kernel``, every launch counter set to 0 just before and
    read just after; then compares the kernel path with the plain path on
    the same weights, and profiles one more batch for the card's busy share;
-4. train: holds one full-width train step's loss and gradient, kernel
+4. train: holds the fused AdamW (``csrc/adamw.cu``) against the eager
+   path on full-width qwen3-0.6b's param tree with seeded random gradients
+   and moments (the norm within ``ADAMW_NORM_RTOL``, a step at that norm
+   bit-equal, both bit-equal on two runs, each timed against the eager
+   path and its bytes bound); holds one full-width train step's loss and
+   gradient, kernel
    attention against plain attention on the same weights and batch, in f32
    and in bf16; then drives ``repro_torch.launch.train`` (the block-GEMM
    report at 8 x 512 tokens, then 6 AdamW steps of full-width qwen3-0.6b,
@@ -167,7 +172,8 @@
 17. the roofline of the one-card steps (``roofline_steps``): phase 3's
    prefill and decode step (timed in phase 3, ``time_serve_steps``) and
    the train steps of phases 4, 8, 12 and 13, each counted on the CPU on
-   meta tensors through the plain path (``launch.dryrun.count_step``) and
+   meta tensors through the plain path, AdamW as its fused kernels move it
+   (``launch.dryrun.count_step``), and
    set beside its measured ms: counted FLOPs and HBM bytes, model FLOPs,
    the H100 roofline and its bound, mfu, the roofline's share of the
    measured time and model FLOPs over counted FLOPs; every count positive,
@@ -176,7 +182,8 @@
    fell behind and of profiler windows that lost records, and what they
    left (``launch.layers.DEVICE_WINDOWS``, ``PROFILER_WINDOWS``; one line
    for this process, one for the child of phases 9 to 13), a
-   ``kernels`` JSON line (six kernels, launches summed over every path)
+   ``kernels`` JSON line (eight kernels, launches summed over every
+   path)
    and, last, the ``ok`` JSON line; the per-case details go to
    ``chiprun_out/chip_smoke.json``.
 
@@ -188,6 +195,8 @@ generator and hands it back, so every check sees the inputs it saw when
 one process ran every phase.  Every phase raises on failure; there is
 no CPU fallback.
 """
+import contextlib
+import importlib
 import json
 import os
 import re
@@ -207,6 +216,7 @@ import torch.nn.functional as F  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import adamw as fused_adamw  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.examples import train_lm as train_lm_example  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -228,7 +238,7 @@ from repro_torch.launch.layers import (  # noqa: E402
     lm_layer_gemms, mean_ms, predicted_ms, profile_window)
 from repro_torch.models import get_model, moe  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.optim.adamw import leaf_slices  # noqa: E402
+from repro_torch.optim.adamw import global_norm, leaf_slices  # noqa: E402
 from repro_torch.roofline import (PEAK_FLOPS, model_flops,  # noqa: E402
                                   roofline_terms)
 from repro_torch.runtime import (make_loss_with_accum,  # noqa: E402
@@ -306,9 +316,20 @@ KERNELS = {
     "ssd_chunk_scan": dict(
         route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan.py:63"),
+    "adamw_sq_sums": dict(
+        route="cuda", source="src/repro_torch/csrc/adamw.cu",
+        replaces="src/repro/optim/adamw.py:18"),
+    "adamw_update": dict(
+        route="cuda", source="src/repro_torch/csrc/adamw.cu",
+        replaces="src/repro/optim/adamw.py:77"),
 }
 KERNEL_FNS = (matmul, flash_attention, flash_decode, flash_attention_fwd_lse,
-              flash_attention_bwd, ssd_chunk_scan)
+              flash_attention_bwd, ssd_chunk_scan, fused_adamw.sq_sums,
+              fused_adamw.update)
+# the fused AdamW norm against the eager one: f32 sums of the same squares
+# in another order, each rounding at most 2^-24 of a partial sum; 1e-6
+# leaves room for a few dozen roundings in a row (``check_adamw``)
+ADAMW_NORM_RTOL = 1e-6
 # the tensor-core instructions each redesigned source must hold: the bf16
 # GEMM runs wgmma (HGMMA), the bf16 flash forward and backward and the SSD
 # chunk scan mma.sync (HMMA)
@@ -1355,6 +1376,89 @@ def compare_train_paths(cfg, dev) -> dict:
         del res, gk, gp, params
         torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def _adamw_held(norm=None, eager: bool = False):
+    """``optim.adamw`` with its global norm held at ``norm`` (where given)
+    and, with ``eager``, every leaf sent to its eager path."""
+    mod = importlib.import_module("repro_torch.optim.adamw")
+    saved = mod.global_norm, mod._on_card
+    if norm is not None:
+        mod.global_norm = lambda tree: norm
+    if eager:
+        mod._on_card = lambda t: False
+    try:
+        yield
+    finally:
+        mod.global_norm, mod._on_card = saved
+
+
+def check_adamw(rec: Record, dev, cfg) -> None:
+    """The fused AdamW on the param tree of phase 4's main path (full-width
+    ``cfg``, as ``launch.train`` makes it), with seeded random gradients
+    in the params' dtypes and random moments: the fused norm within
+    ``ADAMW_NORM_RTOL`` of the eager one, and with the norm held at the
+    fused one a step bit-equal to the eager step (params and moments);
+    each bit-equal on two runs.  Timed with CUDA events around a loop of
+    host calls against the eager path, the update with its moments in
+    place as ``launch.train`` runs it; the bounds are the bytes: the norm
+    reads g, the update reads g, p, m and v and writes p, m and v."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    params = get_model(cfg, device=dev).init_params(0)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                           device=dev, dtype=p.dtype), params)
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    for m, v in zip(tree_leaves(state["mu"]), tree_leaves(state["nu"])):
+        m.normal_(0.0, 1e-2, generator=gen)
+        v.uniform_(0.0, 1e-4, generator=gen)
+    n = sum(p.numel() for p in tree_leaves(params))
+    g_bytes = sum(g.numel() * g.element_size() for g in tree_leaves(grads))
+    p_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(params))
+    hbm = H100["hbm_bw"] / 1e3   # bytes a ms
+    case = f"{cfg.name} tree, {n / 1e9:.3f} B params"
+
+    def norm():
+        return global_norm(grads)
+    got = norm()
+    with _adamw_held(eager=True):
+        want = norm()
+        plain_ms = mean_ms(norm, dev, 5)
+    err = abs(float(got) - float(want)) / float(want)
+    rec.add("adamw_sq_sums", case, err=err,
+            ok=err <= ADAMW_NORM_RTOL and bit_equal(norm),
+            tol=ADAMW_NORM_RTOL, ms=mean_ms(norm, dev, 20),
+            plain_ms=plain_ms, bound_ms=g_bytes / hbm, bound_by="bytes",
+            library_ms=None, main_path=True)
+
+    def step():
+        new, st, _ = opt.update(grads, state, params)
+        return (*tree_leaves(new), *tree_leaves(st["mu"]),
+                *tree_leaves(st["nu"]))
+    in_place = adamw(1e-3, inplace=True)
+    with _adamw_held(norm=got):
+        fused = step()
+        equal = bit_equal(step)
+        with _adamw_held(eager=True):
+            eager = step()
+        diff = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(fused, eager))
+        same = all(a.dtype == b.dtype and torch.equal(a, b)
+                   for a, b in zip(fused, eager))
+        del fused, eager
+        # last: these move the moments in place
+        ms = mean_ms(lambda: in_place.update(grads, state, params), dev, 10)
+        with _adamw_held(eager=True):
+            plain_ms = mean_ms(lambda: in_place.update(grads, state, params),
+                               dev, 3)
+    rec.add("adamw_update", case, err=diff, ok=same and equal, tol=0.0,
+            ms=ms, plain_ms=plain_ms,
+            bound_ms=(g_bytes + 2 * p_bytes + 16 * n) / hbm,
+            bound_by="bytes", library_ms=None, main_path=True)
+    del params, grads, state
+    torch.cuda.empty_cache()
 
 
 def profile_train_step(cfg, dev) -> dict:
@@ -3069,8 +3173,8 @@ def sharded_child(t0: float, tstats: dict, train_launches: dict,
         raise AssertionError(f"phase 16 losses {tr['losses']} are not "
                              f"phase 4's {base}")
     # the launches: phase 4's for the steps run (its layer report's GEMMs,
-    # which phase 16 does not print, left out), so the flash kernels ran on
-    # the local shards and none fell back
+    # which phase 16 does not print, left out), so the flash and AdamW
+    # kernels ran on the local shards and none fell back
     want = {k: (0 if k == "matmul" else v * SHARDED_STEPS // TRAIN_STEPS)
             for k, v in train_launches.items()}
     if tr["launches"] != want:
@@ -3106,7 +3210,8 @@ def sharded_child(t0: float, tstats: dict, train_launches: dict,
 
 def roofline_steps(serve_ms: dict, train_ms: dict) -> list[dict]:
     """Phase 17: each step the script times, counted on the CPU on meta
-    tensors through the plain path (``launch.dryrun.count_step``): phase
+    tensors through the plain path, AdamW's update as the card's fused
+    kernels move it (``launch.dryrun.count_step``): phase
     3's prefill and decode step (``serve_ms``), and the train steps of
     phases 4, 8, 12 and 13 at the shapes and depths they train
     (``train_ms``: ms a step by arch).  Prints for each the counted FLOPs
@@ -3277,6 +3382,7 @@ def main() -> None:
                   window=16, main_path=False)
     check_bwd(rec, dev, gen, 1, 16, 8, 256, 128, torch.float32, window=16,
               main_path=False)
+    check_adamw(rec, dev, cfg)
     gates = compare_train_paths(cfg, dev)
     try:
         tstats, train_launches, resumed = train_main_path()

@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 
 SOURCES = ("matmul", "flash_attention", "flash_attention_bwd",
-           "flash_decode", "ssd_scan")
+           "flash_decode", "ssd_scan", "adamw")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

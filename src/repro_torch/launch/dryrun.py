@@ -197,20 +197,23 @@ def count_step(cfg, kind: str, batch: int, seq: int, *,
     ``microbatches``), a ``prefill`` of ``batch`` prompts of ``seq``
     tokens into a cache of ``max_len``, or one ``decode`` step of
     ``batch`` rows against that cache.  The model's stub-frontend inputs
-    come at ``extra_inputs``' shapes.  Returns the counted record and
+    come at ``extra_inputs``' shapes.  AdamW's update counts as the card
+    runs it (``on_card_adamw``).  Returns the counted record and
     ``path``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from ..models import get_model
     from ..optim import adamw, cosine_schedule
-    from ..roofline import collect_step
+    from ..roofline.collect import StepCounter, record
     from ..runtime import make_train_step
     from ..tree import tree_map
 
     # the stand-ins are drawn by a cpu model in the fake mode; the step
     # runs a meta model's functions, which put the batch on ``meta``
     model = get_model(cfg, device="meta", attn="plain")
-    opt = adamw(cosine_schedule(3e-3, 20, 100), inplace=True)
+    counter = StepCounter()
+    opt = on_card_adamw(adamw(cosine_schedule(3e-3, 20, 100), inplace=True),
+                        counter)
     with FakeTensorMode(allow_non_fake_inputs=True):
         params = get_model(cfg, device="cpu").init_params(0)
         inputs = {"tokens": torch.zeros((batch, seq), dtype=torch.long)}
@@ -228,9 +231,23 @@ def count_step(cfg, kind: str, batch: int, seq: int, *,
             fn, args = model.decode_step, (
                 params, torch.zeros((batch,), dtype=torch.long),
                 model.init_cache(batch, max_len))
-    with torch.no_grad():
-        counted = collect_step(fn, *tree_map(_meta, args))
-    return {**counted, "path": "plain"}
+    with torch.no_grad(), counter:
+        fn(*tree_map(_meta, args))
+    return {**record(counter), "path": "plain"}
+
+
+def on_card_adamw(opt, counter):
+    """``opt`` with its update counted by ``counter`` as ``csrc/adamw.cu``
+    runs it on the card: the norm's kernel reads the gradients, then one
+    kernel clips and updates every leaf, reading gradients, params and
+    moments once and writing params and moments once.  The eager ops' FLOPs
+    count; their f32 temporaries, which the kernel keeps in registers, move
+    no bytes."""
+    from ..optim import Optimizer
+
+    def update(grads, state, params):
+        return counter.fused(opt.update, grads, state, params, reread=grads)
+    return Optimizer(opt.init, update)
 
 
 def _parse_set(items: list[str]) -> dict:

@@ -13,7 +13,18 @@ that owns its state and rolls back from checkpoints (``launch.train``): at
 2.7B parameters a second copy of the moments (21.6 GB) does not fit an
 80 GB card beside the rest of a train step.
 
-The norm, the clip and the update run over each leaf a slice of its
+Two paths, chosen leaf by leaf by the device alone, with no option.
+Every leaf on a CUDA card takes the fused path: ``csrc/adamw.cu`` sums
+every such gradient's squares in one launch, and updates every such leaf
+in one more, the clip included, reading g, m, v and p once and writing p,
+m and v once, with no f32 temporary.  A strided gradient is made
+contiguous first; the kernels' wrappers raise on a leaf they cannot take
+(a param or gradient not in bf16 or f32, moments not in f32).  Its update
+is the eager path's bit for bit at the same norm; its norm adds the
+squares in another order, which may move the last bits.  Every CPU leaf
+takes the eager path, elementwise PyTorch ops.
+
+The eager norm, clip and update run over each leaf a slice of its
 leading dimension at a time (``SLICE_ELEMS``), so no f32 temporary is
 larger than a slice, whatever the leaf: command-r-plus-104b's tied
 embedding is one leaf of 3.1 B parameters, 12.6 GB in f32.  The clip and
@@ -22,6 +33,11 @@ clips each slice of a gradient as it reads it, rounding it to the
 gradient's dtype as ``clip_by_global_norm`` does, and makes no clipped
 copy of the tree.  ``global_norm`` sums each slice's squares in f32 and
 then the slices', which may move its last bits against one sum per leaf.
+The fused path needs no slices: its kernels keep 64-bit offsets.
+
+Under a profiler (``repro_torch.tracing``) ``update`` counts
+``optim.elems``, the param elements it updated, and ``optim.fused_elems``,
+those the fused path updated.
 
 DTensor leaves (the sharded train step) update elementwise on each rank's
 local shard, slices included, so params, grads and moments keep their
@@ -42,6 +58,8 @@ import torch
 import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from .. import tracing
+from ..kernels import adamw as fused
 from ..tree import tree_leaves, tree_map, tree_map_with_path, tree_pick
 
 _F32 = torch.float32
@@ -66,6 +84,21 @@ def _sq_sum(leaf: torch.Tensor) -> torch.Tensor:
                for s, in leaf_slices(leaf))
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether a leaf (its local shard) takes the fused path."""
+    return t.device.type == "cuda"
+
+
+def _sq_sums(leaves: list) -> list:
+    """Each leaf's sum of squares, a 0-d f32 tensor: those on the card
+    from one launch of the fused kernel, the rest from ``_sq_sum``."""
+    mine = [i for i, g in enumerate(leaves) if _on_card(g)]
+    sums = fused.sq_sums([leaves[i].contiguous() for i in mine]).unbind() \
+        if mine else ()
+    got = dict(zip(mine, sums))
+    return [got[i] if i in got else _sq_sum(g) for i, g in enumerate(leaves)]
+
+
 def _whole_sums(leaves: list) -> list:
     """Each DTensor leaf's sum of squares over the whole leaf: the local
     sums, added across every mesh dim that splits the leaf."""
@@ -74,7 +107,7 @@ def _whole_sums(leaves: list) -> list:
                                              g.placements])
               if any(p.is_partial() for p in g.placements) else g
               for g in leaves]
-    sums = torch.stack([_sq_sum(g.to_local()) for g in leaves])
+    sums = torch.stack(_sq_sums([g.to_local() for g in leaves]))
     mesh = leaves[0].device_mesh
     for d in range(mesh.ndim):
         split = [isinstance(g.placements[d], Shard) for g in leaves]
@@ -90,7 +123,7 @@ def global_norm(tree) -> torch.Tensor:
     leaves = tree_leaves(tree)
     if leaves and isinstance(leaves[0], DTensor):
         return torch.sqrt(sum(_whole_sums(leaves)))
-    return torch.sqrt(sum(_sq_sum(leaf) for leaf in leaves))
+    return torch.sqrt(sum(_sq_sums(leaves)))
 
 
 def _clip_scale(g: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -185,9 +218,12 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
         gnorm = global_norm(grads)
         scale = _clip_scale(gnorm, max_grad_norm)
         t = step.to(_F32)
-        b1c = 1 - torch.tensor(b1, dtype=_F32, device=t.device) ** t
-        b2c = 1 - torch.tensor(b2, dtype=_F32, device=t.device) ** t
+        # filled on the card, not copied to it: a copy waits for the card
+        b1c = 1 - torch.full((), b1, dtype=_F32, device=t.device) ** t
+        b2c = 1 - torch.full((), b2, dtype=_F32, device=t.device) ** t
         lr_t = lr_fn(step).to(t.device)
+        on_card = []    # leaves on the card, updated in one launch
+        elems = [0, 0]  # param elements updated: all, fused
 
         def upd(path, g, m, v, p):
             decay = _ref_ndim(path, p) >= 2  # decay matrices only
@@ -198,6 +234,12 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
             new_p = torch.empty_like(p)
             m2, v2 = (m, v) if inplace else (torch.empty_like(m),
                                              torch.empty_like(v))
+            elems[0] += p.numel()
+            if _on_card(p):
+                on_card.append((g.contiguous(), m, v, p, new_p, m2, v2,
+                                decay))
+                elems[1] += p.numel()
+                return tuple(placed_like(t, dp) for t in (new_p, m2, v2))
             slices = leaf_slices(g, m, v, p, new_p, m2, v2)
             for gs, ms, vs, ps, ps2, ms2, vs2 in slices:
                 gf = _clipped(gs, scale).to(_F32)
@@ -214,6 +256,11 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.95,
             return tuple(placed_like(t, dp) for t in (new_p, m2, v2))
 
         out = tree_map_with_path(upd, grads, state["mu"], state["nu"], params)
+        if on_card:
+            fused.update(on_card, scale, b1c, b2c, lr_t, b1=b1, b2=b2,
+                         eps=eps, weight_decay=weight_decay)
+        tracing.count("optim.elems", elems[0])
+        tracing.count("optim.fused_elems", elems[1])
         new_state = {"mu": tree_pick(out, 1), "nu": tree_pick(out, 2),
                      "step": placed_like(step, state["step"])}
         return tree_pick(out, 0), new_state, {"grad_norm": gnorm,

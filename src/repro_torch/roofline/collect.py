@@ -16,7 +16,10 @@ it dispatches, as ``hlo_cost.py`` prices each HLO instruction:
   backwards: ``_COMPOSITE``) as its decomposition into the ops above;
 * nothing, FLOPs or bytes, for views and the ops of ``_FREE``; every
   other op (copies, gathers, scatters, concatenation) moves bytes and
-  does no arithmetic.
+  does no arithmetic;
+* a call that the card runs as fused kernels (``StepCounter.fused``, the
+  one-card count's AdamW update) as its ops' FLOPs and, for bytes, its
+  arguments and results alone.
 
 Bytes are each op's operand bytes plus its result bytes (an op that
 overwrites its first operand, ``_OVERWRITE``, does not read it), counting
@@ -194,6 +197,22 @@ class StepCounter(TorchDispatchMode):
             self.bytes += _hbm_bytes(read) + _hbm_bytes(out)
         self.flops += self._price(func, name.rstrip("_"), args, kwargs, out,
                                   operands)
+        return out
+
+    def fused(self, fn, *args, reread=()):
+        """Run ``fn(*args)`` counted as the fused kernels that run it on the
+        card: its ops' FLOPs, and as bytes its arguments read once, its
+        results written once and the tensors of ``reread`` read once more
+        (those above ``RESIDENT_BYTES``), as ``hlo_cost.py`` prices a
+        fusion by its operands and results; the temporaries of its ops
+        stay on chip there.  Returns ``fn``'s result."""
+        flops_only, self._flops_only = self._flops_only, True
+        try:
+            out = fn(*args)
+        finally:
+            self._flops_only = flops_only
+        if not flops_only:
+            self.bytes += _hbm_bytes((args, reread)) + _hbm_bytes(out)
         return out
 
     def _price(self, func, name, args, kwargs, out, operands) -> float:

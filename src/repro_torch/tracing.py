@@ -34,7 +34,9 @@ Spans: ``serve.prefill``, ``serve.first_decode``, ``serve.decode`` and
 ``moe.layer`` (a layer of the MoE family, or its recompute),
 ``moe.route``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``,
 each with its ``.bwd`` (``models.moe``).  Counters: ``moe.assignments``,
-``moe.dropped``.
+``moe.dropped`` (``models.moe``); ``optim.elems``, the param elements an
+update changed, and ``optim.fused_elems``, those the fused kernel took
+(``optim.adamw``).
 """
 from __future__ import annotations
 

@@ -17,7 +17,8 @@ axis of two, a one-rank group moves no collective bytes, and every kind
 of collective the step issues has bytes; ``roofline_terms`` reads
 command-r's record.  ``count_step``, which counts the card's one-card
 steps on meta tensors (``chip_smoke.py`` phase 17), counts what the same
-step counts on real tensors.
+step counts on real tensors, and counts AdamW's update as the card's
+fused kernels move it.
 """
 import json
 import os
@@ -40,7 +41,9 @@ from repro_torch.models import get_model
 from repro_torch.optim import adamw, cosine_schedule
 from repro_torch.roofline import (collect_step, model_flops,
                                   roofline_terms)
-from repro_torch.roofline.collect import KIND
+from repro_torch.roofline.collect import (KIND, RESIDENT_BYTES, StepCounter,
+                                          record)
+from repro_torch.tree import tree_map
 from repro_torch.runtime import make_train_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -209,8 +212,10 @@ def test_meta_count_equals_the_real_step(arch, kind):
     inputs = {"tokens": torch.as_tensor(rng.integers(2, cfg.vocab, (2, 16)))}
     for name, (shape_fn, dtype) in model.extra_inputs.items():
         inputs[name] = torch.zeros(shape_fn(2, 16), dtype=dtype)
+    counter = StepCounter()
     if kind == "train":
-        opt = adamw(cosine_schedule(3e-3, 20, 100), inplace=True)
+        opt = dryrun.on_card_adamw(
+            adamw(cosine_schedule(3e-3, 20, 100), inplace=True), counter)
         inputs.update(targets=inputs["tokens"], weights=torch.ones(2, 16))
         fn = make_train_step(model.loss_fn, opt, 2)
         args = (params, opt.init(params), inputs)
@@ -219,9 +224,32 @@ def test_meta_count_equals_the_real_step(arch, kind):
     else:
         fn, args = model.decode_step, (params, inputs["tokens"][:, 0],
                                        model.init_cache(2, 32))
-    with torch.no_grad():
-        want = collect_step(fn, *args)
+    with torch.no_grad(), counter:
+        fn(*args)
+    want = record(counter)
     assert got["path"] == "plain"
     assert got["flops"] > 0
     assert got["flops"] == pytest.approx(want["flops"], rel=1e-3)
     assert got["bytes_accessed"] == want["bytes_accessed"]
+
+
+def test_adamw_counts_as_the_card_runs_it():
+    """``on_card_adamw``: the update's FLOPs are its eager ops', its bytes
+    what ``csrc/adamw.cu`` moves: each gradient read twice (the norm, the
+    update), each param and moment read once and written once, so 2g + 2p
+    + 16 bytes an element of a leaf above ``RESIDENT_BYTES`` and none of a
+    smaller one; the eager ops' f32 temporaries move several times that."""
+    params = {"w": torch.zeros(512, 300, dtype=torch.bfloat16),
+              "layers": {"b": torch.zeros(256, 1024)}, "s": torch.zeros(8)}
+    grads = tree_map(torch.ones_like, params)
+    assert 512 * 300 * 2 > RESIDENT_BYTES >= 8 * 4
+    opt = adamw(1e-3, inplace=True)
+    eager = collect_step(opt.update, grads, opt.init(params), params)
+    counter = StepCounter()
+    state = opt.init(params)
+    with counter:
+        dryrun.on_card_adamw(opt, counter).update(grads, state, params)
+    assert counter.flops == eager["flops"] > 0
+    assert counter.bytes == 512 * 300 * (2 * 2 + 2 * 2 + 16) \
+        + 256 * 1024 * (2 * 4 + 2 * 4 + 16)
+    assert eager["bytes_accessed"] > 5 * counter.bytes

@@ -5,6 +5,8 @@ decision is made in a fixture, never at import).  Run them on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Cases and bounds are those of ``tests/test_kernels.py``.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -1774,3 +1776,236 @@ def test_profiled_spans_are_no_kernel_rows_on_card(cuda):
     for s in ("moe.route", "moe.dispatch", "moe.combine", "moe.combine.bwd"):
         assert spans[s]["device_self_s"] > 0
     tracing.reset()
+
+
+# ---------------------------------------------------------------------------
+# the fused AdamW (csrc/adamw.cu) against the eager path
+# ---------------------------------------------------------------------------
+
+
+def _eager_only(monkeypatch):
+    """Send every leaf to the optimizer's eager path."""
+    mod = importlib.import_module("repro_torch.optim.adamw")
+    monkeypatch.setattr(mod, "_on_card", lambda t: False)
+
+
+def _adamw_tree(dev, dtype):
+    """(params, grads): leaves of 1, 7 and 1003 elements, undecayed and
+    decayed (``layers``), matrices, one leaf of several chunks and a
+    ragged tail, a param that is a view 2 bytes off its allocation's
+    start, and an f32 gradient of a ``dtype`` param (as gradient
+    accumulation gives)."""
+    from repro_torch.kernels.adamw import CHUNK
+    shapes = {"a": (1,), "b": (7,), "c": (1003,), "w": (33, 65),
+              "big": (3, CHUNK // 2 + 5)}
+    params = {"top": {k: randn(dev, *s, dtype=dtype)
+                      for k, s in shapes.items()},
+              "layers": {k: randn(dev, *s, dtype=dtype)
+                         for k, s in shapes.items()}}
+    base = randn(dev, 1004, dtype=dtype)
+    params["top"]["view"] = base[1:]
+    grads = {top: {k: randn(dev, *p.shape, dtype=dtype)
+                   for k, p in leaves.items()}
+             for top, leaves in params.items()}
+    params["top"]["acc"] = randn(dev, 40, 9, dtype=dtype)
+    grads["top"]["acc"] = randn(dev, 40, 9)
+    return params, grads
+
+
+@pytest.mark.parametrize("inplace", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_adamw_bit_equal_to_eager_on_card(cuda, monkeypatch, dtype,
+                                               inplace):
+    """With the norm held at 3.7 on both sides (the clip bites), two fused
+    steps give params and moments equal to the eager path's bit for bit,
+    every leaf in one launch a step."""
+    from repro_torch.kernels import adamw as fused
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.tree import tree_paths
+
+    mod = importlib.import_module("repro_torch.optim.adamw")
+    monkeypatch.setattr(mod, "global_norm",
+                        lambda tree: torch.tensor(3.7, device=cuda))
+    params, grads = _adamw_tree(cuda, dtype)
+    out = []
+    for eager in (False, True):
+        if eager:
+            _eager_only(monkeypatch)
+        launches = fused.update.launches
+        opt = adamw(cosine_schedule(3e-3, 1, 10), inplace=inplace)
+        p, state = params, opt.init(params)
+        for _ in range(2):
+            p, state, _ = opt.update(grads, state, p)
+        assert fused.update.launches - launches == (0 if eager else 2)
+        out.append((p, state["mu"], state["nu"]))
+    for tree_a, tree_b in zip(*out):
+        for (path, a), (_, b) in zip(tree_paths(tree_a), tree_paths(tree_b)):
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+
+
+def test_fused_global_norm_matches_eager_on_card(cuda, monkeypatch):
+    """The fused norm over the SMOKE model's gradients: within rtol 1e-6 of
+    the eager one (f32 sums added in another order), in one launch, and
+    the same bits on every call."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import adamw as fused
+    from repro_torch.models import get_model
+    from repro_torch.optim import global_norm
+    from repro_torch.runtime import make_loss_with_accum
+
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    model = get_model(cfg, device=cuda)
+    params = model.init_params(0)
+    tokens = torch.randint(2, cfg.vocab, (2, 64), device=cuda)
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, 1)}
+    _, grads = make_loss_with_accum(model.loss_fn, 1)(params, batch)
+    launches = fused.sq_sums.launches
+    got = global_norm(grads)
+    assert torch.equal(global_norm(grads), got)
+    assert fused.sq_sums.launches - launches == 2
+    _eager_only(monkeypatch)
+    want = global_norm(grads)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
+def test_fused_adamw_leaf_past_2_31_on_card(cuda, monkeypatch):
+    """One bf16 leaf of 2^31 + 1000 elements (30 GB with its moments and
+    new param): the fused step's last 1000 elements equal the eager step
+    of that slice alone, and its norm is within rtol 1e-5 of one summed
+    in f64 (its f32 sums take at most ~180 roundings in a row)."""
+    from repro_torch.optim import adamw, global_norm
+
+    n = (1 << 31) + 1000
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    g, p = (torch.randn(2, n // 2, device=cuda, dtype=torch.bfloat16,
+                        generator=gen) for _ in range(2))
+    want_norm = sum(s.double().square().sum()
+                    for s in g.view(-1).split(1 << 26)).sqrt()
+    got_norm = global_norm({"w": g})
+    torch.testing.assert_close(got_norm.double(), want_norm, rtol=1e-5,
+                               atol=0)
+    opt = adamw(1e-3, inplace=True)
+    state = opt.init({"w": p})
+    m, v = state["mu"]["w"], state["nu"]["w"]
+    m.normal_(0.0, 1e-2, generator=gen)
+    v.uniform_(0.0, 1e-4, generator=gen)
+    tail = [t.view(-1)[-1000:].clone().view(1, 1000) for t in (g, m, v, p)]
+    mod = importlib.import_module("repro_torch.optim.adamw")
+    monkeypatch.setattr(mod, "global_norm",
+                        lambda tree: torch.tensor(3.7, device=cuda))
+    new, state, _ = opt.update({"w": g}, state, {"w": p})
+    del g, p
+    got = [t.view(-1)[-1000:] for t in (new["w"], state["mu"]["w"],
+                                        state["nu"]["w"])]
+    _eager_only(monkeypatch)
+    tg, tm, tv, tp = tail
+    small = {"mu": {"w": tm}, "nu": {"w": tv},
+             "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+    wnew, wstate, _ = opt.update({"w": tg}, small, {"w": tp})
+    want = [t.view(-1) for t in (wnew["w"], wstate["mu"]["w"],
+                                 wstate["nu"]["w"])]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_fused_adamw_counts_every_element_on_card(cuda):
+    """Under the profiler ``optim.fused_elems`` equals ``optim.elems``:
+    every leaf on the card takes the kernel, a view off 16 bytes, an f32
+    gradient of a bf16 param and a strided gradient included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.optim import adamw
+
+    params, grads = _adamw_tree(cuda, torch.bfloat16)
+    params["top"]["t"] = randn(cuda, 12, 5, dtype=torch.bfloat16)
+    grads["top"]["t"] = randn(cuda, 5, 12, dtype=torch.bfloat16).t()
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    tracing.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        opt.update(grads, state, params)
+    counts = tracing.records()["counters"]
+    tracing.reset()
+    total = sum(t.numel() for v in params.values() for t in v.values())
+    assert counts["optim.elems"] == counts["optim.fused_elems"] == total
+
+
+def test_fused_adamw_update_has_no_host_sync_on_card(cuda):
+    """A fused step, its norm and schedule included, never waits for the
+    card: the leaf table goes up from pinned memory and the clip scale,
+    the bias corrections and the learning rate stay on the card, so the
+    host can enqueue the update behind the backward."""
+    from repro_torch.optim import adamw, cosine_schedule
+
+    params, grads = _adamw_tree(cuda, torch.bfloat16)
+    opt = adamw(cosine_schedule(3e-3, 1, 10), inplace=True)
+    state = opt.init(params)
+    params, state, _ = opt.update(grads, state, params)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        params, state, metrics = opt.update(grads, state, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(metrics["grad_norm"]))
+
+
+def _mixed_leaves(dev):
+    """Gradient leaves of other sizes and scales, so a sum given to the
+    wrong leaf shows: contiguous bf16 and f32, a strided bf16 view, one of
+    several chunks, and a CPU leaf between them."""
+    from repro_torch.kernels.adamw import CHUNK
+    return [randn(dev, 7, dtype=torch.bfloat16) * 3,
+            randn(dev, 33, 65) * 0.5,
+            (randn(dev, 40, 9, dtype=torch.bfloat16) * 7).t(),
+            randn("cpu", 11, 3) * 2,
+            randn(dev, 3, CHUNK // 2 + 5, dtype=torch.bfloat16) * 0.1,
+            randn(dev, 1003) * 11]
+
+
+def test_fused_sq_sums_give_each_leaf_its_own_on_card(cuda):
+    """``_sq_sums`` over a mixed list: the card's leaves from one launch
+    (the strided one made contiguous), the CPU leaf from the eager sum,
+    each leaf's sum within rtol 1e-6 of ``_sq_sum`` of that same leaf."""
+    from repro_torch.kernels import adamw as fused
+    mod = importlib.import_module("repro_torch.optim.adamw")
+    leaves = _mixed_leaves(cuda)
+    launches = fused.sq_sums.launches
+    got = mod._sq_sums(leaves)
+    assert fused.sq_sums.launches - launches == 1
+    assert len(got) == len(leaves)
+    for i, (a, g) in enumerate(zip(got, leaves)):
+        want = mod._sq_sum(g)
+        assert a.device == g.device, i
+        torch.testing.assert_close(a, want, rtol=1e-6, atol=0,
+                                   msg=f"leaf {i}")
+
+
+def test_fused_whole_sums_of_dtensor_leaves_on_card(nccl_mesh):
+    """``_whole_sums`` over DTensor leaves on a one-rank mesh, split and
+    replicated, and a partial one: each leaf's sum within rtol 1e-6 of
+    ``_sq_sum`` of its whole tensor, from one launch, and ``global_norm``
+    of the tree within rtol 1e-6 of the eager norm of the plain tensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.kernels import adamw as fused
+    from repro_torch.optim import global_norm
+    mod = importlib.import_module("repro_torch.optim.adamw")
+    cuda = nccl_mesh.device_type
+    leaves = [t for t in _mixed_leaves(cuda) if t.device.type == cuda]
+    places = [(Shard(0), Replicate()), (Replicate(), Replicate()),
+              (Replicate(), Shard(1)), (Shard(1), Replicate()),
+              (Partial(), Replicate())]
+    tree = [DTensor.from_local(t, nccl_mesh, pl, run_check=False)
+            for t, pl in zip(leaves, places)]
+    launches = fused.sq_sums.launches
+    got = mod._whole_sums(tree)
+    assert fused.sq_sums.launches - launches == 1
+    for i, (a, g) in enumerate(zip(got, leaves)):
+        torch.testing.assert_close(a, mod._sq_sum(g), rtol=1e-6, atol=0,
+                                   msg=f"leaf {i}")
+    norm = global_norm(tree)
+    want = torch.sqrt(sum(mod._sq_sum(g) for g in leaves))
+    torch.testing.assert_close(norm, want, rtol=1e-6, atol=0)

@@ -246,6 +246,104 @@ def test_sliced_global_norm_and_clip_equal_reference(smoke, monkeypatch):
     assert_tree_close(cfg, clipped, jclipped, atol=1e-7, rtol=1e-6)
 
 
+# (device, param dtype, gradient dtype, moments dtype, strided gradient):
+# whether the kernels' wrappers take the leaf as the optimizer sends it
+# (update, norm)
+_DISPATCH = {
+    "cuda bf16": ("cuda", torch.bfloat16, torch.bfloat16, torch.float32,
+                  False, True, True),
+    "cuda f32": ("cuda", torch.float32, torch.float32, torch.float32, False,
+                 True, True),
+    "cuda bf16 param, f32 grad": ("cuda", torch.bfloat16, torch.float32,
+                                  torch.float32, False, True, True),
+    "cuda bf16 moments": ("cuda", torch.bfloat16, torch.bfloat16,
+                          torch.bfloat16, False, False, True),
+    "cuda strided": ("cuda", torch.bfloat16, torch.bfloat16, torch.float32,
+                     True, True, True),
+    "cuda f16": ("cuda", torch.float16, torch.float16, torch.float32, False,
+                 False, False),
+    "cpu bf16": ("cpu", torch.bfloat16, torch.bfloat16, torch.float32,
+                 False, None, None),
+    "cpu f32": ("cpu", torch.float32, torch.float32, torch.float32, False,
+                None, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DISPATCH))
+def test_fused_adamw_dispatch_follows_the_tensors(case, monkeypatch):
+    """The optimizer sends every leaf on a CUDA card to the fused kernels,
+    a strided gradient made contiguous, and every CPU leaf to the eager
+    path; the kernels' wrappers take a CUDA leaf whose param and gradient
+    are bf16 or f32 and whose moments are f32, and raise on any other.
+    Fake tensors stand for the card's and the kernels are stubbed, so no
+    card is needed."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels import adamw as fused
+
+    device, pdt, gdt, mdt, strided, update, norm = _DISPATCH[case]
+    sent = {}
+
+    def sq_sums(grads):
+        sent["norm"] = grads
+        return torch.ones(len(grads), device=grads[0].device)
+
+    def fused_update(leaves, *args, **kw):
+        sent["update"] = leaves
+
+    monkeypatch.setattr(fused, "sq_sums", sq_sums)
+    monkeypatch.setattr(fused, "update", fused_update)
+    # a fake CUDA tensor's ``contiguous`` copies through a CUDA build's
+    # kernels; a clone to the contiguous format gives the same tensor
+    monkeypatch.setattr(torch.Tensor, "contiguous", lambda t: t if
+                        t.is_contiguous() else
+                        t.clone(memory_format=torch.contiguous_format))
+    with FakeTensorMode():
+        p = torch.empty(6, 4, device=device, dtype=pdt)
+        g = torch.empty(4, 6, device=device, dtype=gdt)
+        g = g.t() if strided else g.view(6, 4)
+        m, v = (torch.empty(6, 4, device=device, dtype=mdt)
+                for _ in range(2))
+        state = {"mu": {"w": m}, "nu": {"w": v},
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
+        new, _, _ = adamw(1e-3).update({"w": g}, state, {"w": p})
+        assert new["w"].device.type == device and new["w"].dtype == pdt
+        if device == "cpu":
+            assert sent == {}
+            return
+        (sg,), ((ug, um, uv, up, *_),) = sent["norm"], sent["update"]
+        assert ug.is_contiguous() and sg.is_contiguous()
+        assert (ug.dtype, um, uv, up) == (gdt, m, v, p)
+        assert fused._leaf_ok(ug, um, uv, up) is update
+        assert fused._grad_ok(sg) is norm
+
+
+def test_optim_counts_updated_elements_under_the_profiler(smoke):
+    """Under the profiler ``update`` counts every param element it
+    updated (``optim.elems``) and those the fused path took
+    (``optim.fused_elems``, none on the CPU); with tracing off it counts
+    nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+
+    _, _, _, params, _, _, grads = smoke
+    opt = adamw(1e-3)
+    state = opt.init(params)
+    tracing.reset()
+    try:
+        opt.update(grads, state, params)
+        assert tracing.records()["counters"] == {}
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(2):
+                opt.update(grads, state, params)
+        counts = tracing.records()["counters"]
+    finally:
+        tracing.reset()
+    total = sum(t.numel() for _, t in tree_paths(params))
+    assert counts == {"optim.elems": 2 * total, "optim.fused_elems": 0}
+
+
 def test_int8_compressed_update_equals_reference(smoke):
     cfg, _, jparams, params, _, jgrads, grads = smoke
     opt, ropt = int8_compressed(adamw(1e-3), cfg), ref_int8(ref_adamw(1e-3))
